@@ -7,15 +7,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
 1. a CUDA card is present; print its name and power limit (nvidia-smi);
 2. build every kernel of the port from the sources in this checkout;
 3. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes (exact for the integer Hamming kernel) and time the
-   kernel, the plain version and one PyTorch library call with CUDA events;
+   main paths' shapes and at ragged and edge shapes (both kernels are
+   integer: exact) and time the kernel, the plain version and a PyTorch
+   library route with CUDA events;
 4. run the tracking slice at full width (the default Config, 640x480,
    8 levels, 1200 features): System on the card, frame 0 initializes, then
-   localization mode for frames 1..11; every frame must track, every kernel
-   must have launched during that run, and the run must agree with the same
-   frames tracked by System(device="cpu") within the stated tolerance;
-5. print one ``{"kernels": [...]}`` line, then the last line
-   ``{"ok": true, "device": {...}}``.
+   localization mode for frames 1..11; every frame must track, the Hamming
+   kernel must have launched during that run, and the run must agree with
+   the same frames tracked by System(device="cpu") within the stated
+   tolerance;
+5. run the mapping slice at full width: the same Config on all 24 frames,
+   NOT in localization mode, so frames 10 and 20 insert keyframes and run
+   ``mapper.keyframe_step``; every frame must track, every keyframe must
+   find a covisible pair, at least one template swap must be accepted, the
+   windowed-match kernel must launch exactly twice per keyframe step, and
+   the run must agree with System(device="cpu") on the same frames;
+6. take the state just before the first keyframe, run ``keyframe_step`` on
+   it on the card and on the CPU, and compare the results;
+7. print a ``timing`` line, one ``{"kernels": [...]}`` line, then the last
+   line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  A copy of the numbers goes
 to ``chiprun_out/chip_smoke.json``.
@@ -36,14 +46,15 @@ import torch
 
 from defslam_tpu_torch.config import Config
 from defslam_tpu_torch.io.synthetic import make_sequence
-from defslam_tpu_torch.ops import cuda_build, hamming
+from defslam_tpu_torch.frontend import extract_features
+from defslam_tpu_torch.mapping import mapper
+from defslam_tpu_torch.ops import cuda_build, hamming, matching, windowed_match
 from defslam_tpu_torch.system import System, TrackingState
 from defslam_tpu_torch.tracking import tracker
-from defslam_tpu_torch.frontend import extract_features
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores
-N_FRAMES = 12
+N_FRAMES = 12  # tracking slice; the mapping slice runs all 2 * N_FRAMES
 HAMMING_SHAPES = [(2048, 1536), (200, 333), (256, 128), (1, 1)]
 
 
@@ -61,6 +72,24 @@ def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def cuda_burst_ms(fn, launches: int = 20, reps: int = 5) -> float:
+    """Median milliseconds per call over ``reps`` bursts of ``launches``
+    back-to-back calls between two CUDA events: the device's time per
+    launch once the gap the host leaves between calls is hidden."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(launches):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
     return statistics.median(times)
 
 
@@ -93,6 +122,7 @@ def check_hamming(dev) -> dict:
     n, m, a, b, err = rows[0]
     ua, ub = unpack_bits(a), unpack_bits(b)
     kernel_ms = cuda_ms(lambda: hamming.hamming_matrix(a, b))
+    burst_ms = cuda_burst_ms(lambda: hamming.hamming_matrix(a, b))
     plain_ms = cuda_ms(lambda: hamming.hamming_matrix_plain(a, b))
     library_ms = cuda_ms(lambda: torch.cdist(ua, ub, p=0))
     lib = torch.cdist(ua, ub, p=0)
@@ -112,6 +142,127 @@ def check_hamming(dev) -> dict:
         "max_abs_err": max(r[4] for r in rows),
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
+        "burst_ms": burst_ms,
+        "plain_ms": plain_ms,
+        "library_ms": library_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+
+
+def _match_inputs(rng, b, n, m, dev, lo=(-1.0, -1.0), hi=(1.0, 1.0), p_valid=0.8):
+    def desc(k):
+        return torch.as_tensor(rng.integers(-2**31, 2**31, (b, k, 8)).astype(np.int32), device=dev)
+
+    def xy(k):
+        return torch.as_tensor(rng.uniform(lo, hi, (b, k, 2)).astype(np.float32), device=dev)
+
+    def valid(k):
+        return torch.as_tensor(rng.uniform(size=(b, k)) < p_valid, device=dev)
+
+    return [desc(n), desc(m), xy(n), xy(m), valid(n), valid(m)]
+
+
+def windowed_cases(cfg: Config, dev) -> dict:
+    """name -> (inputs, radius).  ``path`` is the mapping path's shape
+    (max_warp_pairs x max_keypoints^2) with positions spread over the
+    camera's retina and the densification radius; the others are ragged and
+    edge shapes: one element, nothing inside the window, dead rows and
+    pairs, and minima tied across the column blocks that different lanes
+    and tiles own."""
+    rng = np.random.default_rng(11)
+    cam = cfg.camera
+    lo = (-cam.cx / cam.fx, -cam.cy / cam.fy)
+    hi = ((cam.width - cam.cx) / cam.fx, (cam.height - cam.cy) / cam.fy)
+    k = cfg.orb.max_keypoints
+    cases = {
+        "path": (_match_inputs(rng, cfg.capacity.max_warp_pairs, k, k, dev, lo, hi, 0.78),
+                 2.0 * cfg.tracking.projection_window / cam.fx),
+        "ragged": (_match_inputs(rng, 3, 150, 200, dev), 0.35),
+        "one": (_match_inputs(rng, 1, 1, 1, dev, p_valid=1.0), 5.0),
+        "outside": (_match_inputs(rng, 2, 70, 90, dev), 0.0),
+    }
+    dead = _match_inputs(rng, 4, 100, 300, dev)
+    dead[4][1] = False
+    dead[5][2] = False
+    dead[4][0, :40] = False
+    cases["dead"] = (dead, 0.5)
+    ties = _match_inputs(rng, 2, 64, 700, dev, p_valid=1.0)
+    ties[1][:] = ties[1][:, :1].clone()  # one descriptor in every column: all minima tie
+    ties[1][0, 300:] ^= 1
+    cases["ties"] = (ties, 5.0)
+    return cases
+
+
+def windowed_library(da, db, xa, xb, va, vb, radius, invalid):
+    """The library route to the same function, per pair: unpacked bits
+    through ``torch.cdist(p=0)``, the mask, and ``torch.topk``.  A yardstick
+    only; the port never calls it."""
+    best, second = [], []
+    for k in range(da.shape[0]):
+        d = torch.cdist(unpack_bits(da[k]), unpack_bits(db[k]), p=0)
+        win = (xa[k][:, None, :] - xb[k][None, :, :]).abs().amax(dim=-1) <= radius
+        d = torch.where(va[k][:, None] & vb[k][None, :] & win, d, float(invalid))
+        top = torch.topk(d, min(2, d.shape[1]), dim=1, largest=False).values
+        best.append(top[:, 0])
+        second.append(top[:, -1] if d.shape[1] > 1 else torch.full_like(top[:, 0], invalid))
+    return torch.stack(best), torch.stack(second)
+
+
+def check_windowed_match(cfg: Config, dev) -> dict:
+    """Kernel vs plain at every case (exact on best, idx and second),
+    timings and the bound at the path's shape."""
+    inv = matching.INVALID
+    worst = 0
+    cases = windowed_cases(cfg, dev)
+    for name, (args, radius) in cases.items():
+        before = cuda_build.LAUNCHES["windowed_match"]
+        out = windowed_match.windowed_match(*args, radius, inv)
+        torch.cuda.synchronize()
+        if cuda_build.LAUNCHES["windowed_match"] != before + 1:
+            raise SystemExit("windowed_match did not launch its kernel on a CUDA tensor")
+        ref = windowed_match.windowed_match_plain(*args, radius, inv)
+        errs = [int((o.long() - r.long()).abs().max()) for o, r in zip(out, ref)]
+        exact = all(torch.equal(o, r) for o, r in zip(out, ref))
+        shape = [args[0].shape[0], args[0].shape[1], args[1].shape[1]]
+        print(f"windowed_match {name} {shape}: exact={exact} max_abs_err(best,idx,second)={errs}",
+              flush=True)
+        if not exact:
+            raise SystemExit(f"windowed_match differs from its plain version in case {name}")
+        worst = max(worst, *errs)
+    args, radius = cases["path"]
+    da, db, xa, xb, va, vb = args
+    b, n, m = da.shape[0], da.shape[1], db.shape[1]
+    kernel_ms = cuda_ms(lambda: windowed_match.windowed_match(*args, radius, inv))
+    burst_ms = cuda_burst_ms(lambda: windowed_match.windowed_match(*args, radius, inv))
+    plain_ms = cuda_ms(lambda: windowed_match.windowed_match_plain(*args, radius, inv), reps=5)
+    library_ms = cuda_ms(lambda: windowed_library(*args, radius, inv), reps=5)
+    lib_best, lib_second = windowed_library(*args, radius, inv)
+    best, _, second = windowed_match.windowed_match(*args, radius, inv)
+    if not (torch.equal(lib_best.int(), best) and torch.equal(lib_second.int(), second)):
+        raise SystemExit("the library yardstick disagrees with the windowed_match kernel")
+    # the bound, from this run's data: every (row, column) pair costs the
+    # validity and window test (2 subtractions, 2 absolute values, a max, a
+    # compare, 2 flag tests); a pair the window admits costs 8 x (xor, popc,
+    # add) and a 4-operation update of the running top-2 besides
+    win = (xa[:, :, None, :] - xb[:, None, :, :]).abs().amax(dim=-1) <= radius
+    n_admitted = int((win & va[:, :, None] & vb[:, None, :]).sum())
+    n_ops = 8 * b * n * m + 28 * n_admitted
+    n_bytes = sum(t.numel() * t.element_size() for t in args) + 3 * 4 * b * n
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return {
+        "name": "windowed_match",
+        "route": "cuda",
+        "source": "defslam_tpu_torch/ops/csrc/windowed_match.cu",
+        "replaces": "defslam_tpu/ops/pallas_kernels.py:157",
+        "shape": [b, n, m],
+        "admitted_pairs": n_admitted,
+        "exact": True,
+        "max_abs_err": worst,
+        "ms": kernel_ms,
+        "kernel_ms": kernel_ms,
+        "burst_ms": burst_ms,
         "plain_ms": plain_ms,
         "library_ms": library_ms,
         "bound_ms": max(t_bytes, t_ops),
@@ -127,11 +278,15 @@ def rot_trans_gap(Ta: np.ndarray, Tb: np.ndarray) -> tuple[float, float]:
     return rot, float(np.linalg.norm(Ta[:3, 3].astype(np.float64) - Tb[:3, 3]))
 
 
-def run_slice(frames, cfg: Config, device, perturb: float = 0.0, timed: bool = False):
-    """Track the frames: frame 0 initializes, then localization mode.
-    ``perturb`` scales the template nodes by (1 + N(0, perturb)) right after
-    the initialization (a probe of the solve's own sensitivity)."""
+def run_slice(frames, cfg: Config, device, perturb: float = 0.0, timed: bool = False,
+              localization: bool = True, kf_mark=None):
+    """Track the frames: frame 0 initializes, then localization mode, or
+    with ``localization=False`` keyframes and mapping.  ``perturb`` scales
+    the template nodes by (1 + N(0, perturb)) right after the
+    initialization (a probe of the solve's own sensitivity)."""
     sys_ = System(cfg, device=device)
+    sys_._kf_mark = kf_mark
+    sys_.map_diags = []
     frame_s = []
     for t, frame in enumerate(frames):
         t0 = time.perf_counter()
@@ -139,8 +294,11 @@ def run_slice(frames, cfg: Config, device, perturb: float = 0.0, timed: bool = F
         if timed:
             torch.cuda.synchronize()
         frame_s.append(time.perf_counter() - t0)
+        if sys_._metrics[-1]["keyframe"] and t > 0:
+            sys_.map_diags.append(dict(frame=t, **sys_.last_map_diag._asdict()))
         if t == 0:
-            sys_.activate_localization_mode()
+            if localization:
+                sys_.activate_localization_mode()
             if perturb:
                 rng = np.random.default_rng(1)
                 noise = torch.as_tensor(rng.normal(0.0, perturb, (cfg.mesh.n_nodes, 3)),
@@ -167,8 +325,10 @@ def stage_times(sys_: System, frame) -> dict:
     }
 
 
-def compare_runs(gpu: System, cpu: System, probe: System) -> list[dict]:
-    """Per-frame comparison of the card's run with the CPU's.  A frame's
+def compare_runs(gpu: System, cpu: System, probe: System | None) -> list[dict]:
+    """Per-frame comparison of the card's run with the CPU's: tracking
+    states, keyframe and template flags equal, inlier counts within 2% (or
+    1), and, where a ``probe`` run is given, the pose.  A frame's
     pose gap passes at <= 1e-3 (rad and world units), or within 3x the gap
     that a 1e-7 relative perturbation of the template opens between two
     CPU runs at that frame: the solve on a nearly flat template is that
@@ -178,20 +338,174 @@ def compare_runs(gpu: System, cpu: System, probe: System) -> list[dict]:
     for i, (mg, mc) in enumerate(zip(gpu._metrics, cpu._metrics)):
         Tg = gpu.trajectory[i][1]
         Tc = cpu.trajectory[i][1]
-        Tp = probe.trajectory[i][1]
         rot, trans = rot_trans_gap(Tg, Tc)
-        rot_p, trans_p = rot_trans_gap(Tp, Tc)
-        ok_pose = (rot <= max(1e-3, 3 * rot_p)) and (trans <= max(1e-3, 3 * trans_p))
+        rot_p = trans_p = None
+        ok_pose = True
+        if probe is not None:
+            rot_p, trans_p = rot_trans_gap(probe.trajectory[i][1], Tc)
+            ok_pose = (rot <= max(1e-3, 3 * rot_p)) and (trans <= max(1e-3, 3 * trans_p))
         ok_inl = abs(mg["inliers"] - mc["inliers"]) <= max(1, 0.02 * mc["inliers"])
+        ok_flags = all(mg[k] == mc[k] for k in ("state", "keyframe", "template"))
         row = dict(frame=i, state=[mg["state"], mc["state"]],
+                   keyframe=[mg["keyframe"], mc["keyframe"]],
+                   template=[mg["template"], mc["template"]],
                    matches=[mg["matches"], mc["matches"]],
                    inliers=[mg["inliers"], mc["inliers"]],
                    rot_gap=rot, trans_gap=trans, probe_rot_gap=rot_p,
-                   probe_trans_gap=trans_p, ok=bool(ok_pose and ok_inl
-                                                    and mg["state"] == mc["state"]))
+                   probe_trans_gap=trans_p, ok=bool(ok_pose and ok_inl and ok_flags))
         print("frame", json.dumps(row), flush=True)
         rows.append(row)
     return rows
+
+
+class StageMarks:
+    """The ``mark`` callback of ``keyframe_step``: a CUDA event (or a host
+    time on the CPU) at every stage boundary, and the tensors handed over."""
+
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+        self.marks: list[tuple[str, object]] = []
+        self.tensors: dict[str, torch.Tensor] = {}
+
+    def __call__(self, name: str, **tensors):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+        else:
+            ev = time.perf_counter()
+        self.marks.append((name, ev))
+        self.tensors.update({k: v.clone() for k, v in tensors.items()})
+
+    def steps_ms(self) -> list[dict]:
+        """Per keyframe step: milliseconds of each stage (the time between
+        its mark and the one before) and their sum ``keyframe_ms``."""
+        if self.cuda:
+            torch.cuda.synchronize()
+        steps, prev = [], None
+        for name, ev in self.marks:
+            if name == "start":
+                steps.append({})
+            else:
+                dt = prev.elapsed_time(ev) if self.cuda else (ev - prev) * 1e3
+                steps[-1][name + "_ms"] = dt
+            prev = ev
+        for st in steps:
+            st["keyframe_ms"] = sum(st.values())
+        return steps
+
+
+def mapping_slice(frames, cfg: Config, dev):
+    """The mapping slice on the card: all frames, keyframes on.  Returns
+    (system, frame seconds, kernel launches of the run, per-step stage ms).
+    Fails unless every frame tracks, every keyframe step finds a covisible
+    pair, a template swap is accepted, and the kernels launched as the path
+    says they must."""
+    marks = StageMarks(dev)
+    cuda_build.LAUNCHES.clear()
+    gpu, frame_s = run_slice(frames, cfg, dev, timed=True, localization=False, kf_mark=marks)
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
+    states = [m["state"] for m in gpu._metrics]
+    kf_frames = [m["frame"] for m in gpu._metrics if m["keyframe"]]
+    for d in gpu.map_diags:
+        print("mapping_diag", json.dumps(d), flush=True)
+    print("mapping states", states, "keyframes", kf_frames, "launches", launches, flush=True)
+    if any(s != TrackingState.OK.name for s in states):
+        raise SystemExit(f"mapping slice: not every frame tracked: {states}")
+    period = cfg.tracking.keyframe_period
+    expect = [0] + list(range(period, len(frames), period))
+    if kf_frames != expect:
+        raise SystemExit(f"mapping slice: keyframes at {kf_frames}, expected {expect}")
+    if any(d["n_pairs"] < 1 for d in gpu.map_diags):
+        raise SystemExit("mapping slice: a keyframe step found no covisible pair")
+    n_swaps = sum(d["accepted"] for d in gpu.map_diags)
+    if n_swaps < 1:
+        raise SystemExit("mapping slice: no template swap was accepted")
+    n_steps = len(gpu.map_diags)
+    if launches.get("windowed_match", 0) != 2 * n_steps:
+        raise SystemExit(f"windowed_match launched {launches.get('windowed_match', 0)} times "
+                         f"in {n_steps} keyframe steps (2 each expected)")
+    if launches.get("hamming_matrix", 0) < len(frames) - 1 + n_swaps:
+        raise SystemExit(f"hamming_matrix launched {launches.get('hamming_matrix', 0)} times for "
+                         f"{len(frames) - 1} tracked frames and {n_swaps} re-anchors")
+    return gpu, frame_s, launches, marks.steps_ms()
+
+
+def to_device(obj, device):
+    """A copy of a tensor, or of a NamedTuple of tensors, on ``device``."""
+    if torch.is_tensor(obj):
+        return obj.detach().clone().to(device)
+    return type(obj)(*(to_device(v, device) for v in obj))
+
+
+def _gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest absolute difference relative to max(1, largest |b|)."""
+    a, b = a.double().cpu(), b.double().cpu()
+    if a.numel() == 0:
+        return 0.0
+    return float((a - b).abs().max() / max(1.0, float(b.abs().max())))
+
+
+def keyframe_card_vs_cpu(frames, cfg: Config, dev, tol: float = 5e-3) -> dict:
+    """``keyframe_step`` on the card and on the CPU from one state: the
+    card tracks up to the first keyframe's frame, that frame is tracked and
+    committed by hand, and both devices run the step on copies.  Integer
+    tables, counts and verdicts must be equal; the float results (accepted
+    scale, normals, SfN control depths, template nodes, pose) within
+    ``tol`` of their largest magnitude: the same float32 operations in
+    another order, through a Cholesky, an SVD and the SfT solve."""
+    period = cfg.tracking.keyframe_period
+    s = System(cfg, device=dev)
+    for t in range(period):
+        s.track_monocular(frames[t], timestamp=float(t))
+    img = torch.as_tensor(np.asarray(frames[period]), device=s.device)
+    feats, matches, res, new_points, _ = tracker.track_frame(
+        img, s.points, s.pose, s.prev_pose, s.template, s.K, cfg)
+    state = dict(kfs=s.kfs, points=new_points, tmpl=s.template._replace(nodes=res.nodes),
+                 pose=res.T, feats=feats, kp_of_point=matches.kp_of_point, inlier=res.inlier,
+                 K=s.K, dom=s.dom, bend_warp=s.bend_warp, bend_sfn=s.bend_sfn)
+    out = {}
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        marks = StageMarks(device)
+        args = {k: to_device(v, device) for k, v in state.items()}
+        kfs, points, tmpl, pose, diag = mapper.keyframe_step(
+            **args, tmpl_ref_kf=s.template_ref_kf, kf_counter=s.kf_counter,
+            frame_id=s.frame_id + 1, cfg=cfg, mark=marks)
+        out[name] = dict(kfs=kfs, points=points, tmpl=tmpl, pose=pose, diag=diag,
+                         best=marks.tensors["best"], stages=marks.steps_ms()[0])
+    g, c = out["card"], out["cpu"]
+    equal = {
+        "densify_best": torch.equal(g["best"].cpu(), c["best"]),
+        "point_id": torch.equal(g["kfs"].point_id.cpu(), c["kfs"].point_id),
+        "n_obs": torch.equal(g["points"].n_obs.cpu(), c["points"].n_obs),
+        "points_valid": torch.equal(g["points"].valid.cpu(), c["points"].valid),
+        "norm_valid": torch.equal(g["kfs"].norm_valid.cpu(), c["kfs"].norm_valid),
+    }
+    diag = {}
+    for f in mapper.MappingDiag._fields:
+        vg, vc = getattr(g["diag"], f).item(), getattr(c["diag"], f).item()
+        diag[f] = [vg, vc]
+        if f != "reg_scale":
+            equal["diag." + f] = vg == vc
+    nv = c["kfs"].norm_valid
+    gaps = {
+        "reg_scale": abs(diag["reg_scale"][0] - diag["reg_scale"][1]) / diag["reg_scale"][1],
+        "norm_k": _gap(g["kfs"].norm_k.cpu()[nv], c["kfs"].norm_k[nv]),
+        "surf_ctrl": _gap(g["kfs"].surf_ctrl, c["kfs"].surf_ctrl),
+        "template_nodes": _gap(g["tmpl"].nodes, c["tmpl"].nodes),
+        "pose": _gap(g["pose"], c["pose"]),
+    }
+    # the card's step here is the process's first: its stage times include
+    # the one-time set-up of the linear-algebra libraries and of torch.func
+    row = dict(equal=equal, gaps=gaps, tol=tol, diag=diag,
+               n_densified=int((c["best"] >= 0).sum()), first_step_stages_ms=g["stages"])
+    print("keyframe_card_vs_cpu", json.dumps(row), flush=True)
+    if not all(equal.values()):
+        raise SystemExit("keyframe_step: integer results differ between the card and the CPU: "
+                         + ", ".join(k for k, v in equal.items() if not v))
+    if not all(v <= tol for v in gaps.values()):
+        raise SystemExit(f"keyframe_step: float results differ by more than {tol}: {gaps}")
+    return row
 
 
 def main() -> int:
@@ -213,18 +527,22 @@ def main() -> int:
         print(f"build {name}: {r['seconds']:.2f} s\n{r['log'].strip()}", flush=True)
     print(f"build total: {build_s:.2f} s", flush=True)
 
-    kern = check_hamming(dev)
-
     # the JAX package's full-size bench regime (bench.py: 24 frames of
-    # handheld 6-DoF motion); its first 12 frames are tracked.  A 12-frame
-    # render of the same motion moves twice as far per frame: frame 1 then
-    # gets 24 matches and 2 inliers in both packages, and the JAX package
-    # only recovers through relocalization, a later slice of the port
+    # handheld 6-DoF motion).  The tracking slice tracks its first 12
+    # frames; a 12-frame render of the same motion moves twice as far per
+    # frame, and frame 1 then gets 24 matches and 2 inliers in both
+    # packages, which only relocalization (a later slice) recovers.  The
+    # mapping slice runs all 24.
     seq = make_sequence(n_frames=2 * N_FRAMES, height=480, width=640, max_amp=0.08,
                         camera_motion=0.35, rotation_deg=20, deform_modes=3,
                         brightness_drift=0.1)
-    frames = seq.frames[:N_FRAMES]
     cfg = Config(camera=seq.camera)
+
+    kern_h = check_hamming(dev)
+    kern_w = check_windowed_match(cfg, dev)
+
+    # ---- tracking slice
+    frames = seq.frames[:N_FRAMES]
     # warm the card (allocator, library handles) outside the counted run
     run_slice(frames[:2], cfg, dev)
     torch.cuda.synchronize()
@@ -232,42 +550,72 @@ def main() -> int:
     cuda_build.LAUNCHES.clear()
     gpu, frame_s = run_slice(frames, cfg, dev, timed=True)
     torch.cuda.synchronize()
-    launches = dict(cuda_build.LAUNCHES)
-    kern["launches"] = launches.get("hamming_matrix", 0)
+    launches_t = dict(cuda_build.LAUNCHES)
     states = [m["state"] for m in gpu._metrics]
-    print("states", states, "launches", launches, flush=True)
+    print("tracking states", states, "launches", launches_t, flush=True)
     if any(s != TrackingState.OK.name for s in states):
         raise SystemExit(f"not every frame tracked: {states}")
-    if kern["launches"] < N_FRAMES - 1:
-        raise SystemExit(f"hamming_matrix launched {kern['launches']} times "
+    if launches_t.get("hamming_matrix", 0) < N_FRAMES - 1:
+        raise SystemExit(f"hamming_matrix launched {launches_t.get('hamming_matrix', 0)} times "
                          f"for {N_FRAMES - 1} tracked frames")
     tracked_s = frame_s[1:]
-    stages = stage_times(gpu, frames[-1])
     timing = {
         "frame_p50_ms": statistics.median(tracked_s) * 1e3,
         "frame_max_ms": max(tracked_s) * 1e3,
         "init_ms": frame_s[0] * 1e3,
-        **stages,
+        **stage_times(gpu, frames[-1]),
     }
+
+    # ---- one keyframe step, the card against the CPU (it also warms the
+    # mapping chain's libraries outside the timed and counted run)
+    torch.set_num_threads(max(1, os.cpu_count() or 1))
+    kf_row = keyframe_card_vs_cpu(seq.frames, cfg, dev)
+
+    # ---- mapping slice
+    gpu_map, map_frame_s, launches_m, steps = mapping_slice(seq.frames, cfg, dev)
+    plain_s = [map_frame_s[m["frame"]] for m in gpu_map._metrics[1:] if not m["keyframe"]]
+    kf_s = [map_frame_s[m["frame"]] for m in gpu_map._metrics[1:] if m["keyframe"]]
+    timing.update({
+        "keyframe_ms": [st["keyframe_ms"] for st in steps],
+        "keyframe_stages_ms": steps,
+        "first_keyframe_ms_with_library_setup": kf_row["first_step_stages_ms"]["keyframe_ms"],
+        "mapping_frame_p50_ms": statistics.median(plain_s) * 1e3,
+        "mapping_keyframe_frame_ms": [x * 1e3 for x in kf_s],
+    })
     print("timing", json.dumps(timing), flush=True)
 
-    torch.set_num_threads(max(1, os.cpu_count() or 1))
+    kern_h["launches_by_path"] = {"tracking": launches_t.get("hamming_matrix", 0),
+                                  "mapping": launches_m.get("hamming_matrix", 0)}
+    kern_w["launches_by_path"] = {"tracking": launches_t.get("windowed_match", 0),
+                                  "mapping": launches_m.get("windowed_match", 0)}
+    for k in (kern_h, kern_w):
+        k["launches"] = sum(k["launches_by_path"].values())
+
+    # ---- the card's runs against the CPU's
     cpu, _ = run_slice(frames, cfg, "cpu")
     probe, _ = run_slice(frames, cfg, "cpu", perturb=1e-7)
     rows = compare_runs(gpu, cpu, probe)
     if not all(r["ok"] for r in rows):
-        raise SystemExit("the card's run disagrees with the CPU run")
+        raise SystemExit("tracking slice: the card's run disagrees with the CPU run")
+    cpu_map, _ = run_slice(seq.frames, cfg, "cpu", localization=False)
+    map_rows = compare_runs(gpu_map, cpu_map, None)
+    if not all(r["ok"] for r in map_rows):
+        raise SystemExit("mapping slice: the card's run disagrees with the CPU run")
 
-    pose = gpu.trajectory[-1][1]
-    if not np.isfinite(pose).all() or pose.shape != (4, 4):
-        raise SystemExit("final pose is not a finite 4x4 matrix")
+    for run in (gpu, gpu_map):
+        pose = run.trajectory[-1][1]
+        if not np.isfinite(pose).all() or pose.shape != (4, 4):
+            raise SystemExit("final pose is not a finite 4x4 matrix")
 
-    out = {"nvidia_smi": smi, "build_s": build_s, "kernels": [kern],
-           "timing": timing, "frames": rows}
+    kernels = [kern_h, kern_w]
+    out = {"nvidia_smi": smi, "build_s": build_s, "kernels": kernels, "timing": timing,
+           "frames": rows, "mapping_frames": map_rows, "mapping_diags": gpu_map.map_diags,
+           "keyframe_card_vs_cpu": kf_row}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(out, f, indent=1)
-    print(json.dumps({"kernels": [kern]}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -95,3 +95,25 @@ def transform(T: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     if p.ndim >= 2 and p.shape[-2] != 3:
         return torch.einsum("...ij,...nj->...ni", R, p) + t[..., None, :]
     return torch.einsum("...ij,...j->...i", R, p) + t
+
+
+def horn_alignment(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor):
+    """Closed-form weighted Sim(3) alignment (Horn/Umeyama): (s, R, t)
+    minimizing sum_i w_i || s R src_i + t - dst_i ||^2.  src, dst (N, 3),
+    w (N,) mask or weights.  The sign of det(U) det(Vt) flips the last
+    singular direction, so R is a rotation, never a reflection."""
+    wsum = torch.clamp(w.sum(), min=_EPS)
+    wn = w / wsum
+    mu_s = torch.sum(wn[:, None] * src, dim=0)
+    mu_d = torch.sum(wn[:, None] * dst, dim=0)
+    xs = src - mu_s
+    xd = dst - mu_d
+    cov = (xd * wn[:, None]).T @ xs
+    var_s = torch.sum(wn * torch.sum(xs * xs, dim=-1))
+    U, D, Vt = torch.linalg.svd(cov)
+    sign = torch.sign(torch.linalg.det(U) * torch.linalg.det(Vt))
+    S = torch.stack([torch.ones_like(sign), torch.ones_like(sign), sign])
+    R = (U * S[None, :]) @ Vt
+    s = torch.sum(D * S) / torch.clamp(var_s, min=_EPS)
+    t = mu_d - s * R @ mu_s
+    return s, R, t

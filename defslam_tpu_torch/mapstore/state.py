@@ -1,7 +1,8 @@
 """Fixed-capacity structure-of-arrays map state.
 
-Port of ``defslam_tpu/mapstore/state.py`` (the stores and the keyframe
-insertion the plane initialization needs).  Capacities come from
+Port of ``defslam_tpu/mapstore/state.py`` (the stores and the two
+keyframe insertions: from the plane initialization and from a tracked
+frame's matches).  Capacities come from
 ``CapacityConfig``; K = keypoints/frame, P = map points, F = keyframes.
 Descriptors are int32 words (the JAX package's uint32 bits).  Index fields
 are int64 so they index tensors directly.
@@ -16,6 +17,7 @@ import torch
 from defslam_tpu_torch.config import Config
 from defslam_tpu_torch.frontend import Features
 from defslam_tpu_torch.geometry import camera
+from defslam_tpu_torch.utils import last_writer
 
 
 class KeyframeStore(NamedTuple):
@@ -142,3 +144,39 @@ def add_keyframe(
     kfs.surf_valid[slot] = False
     kfs.norm_valid[slot] = False
     return kfs
+
+
+def insert_keyframe_from_matches(
+    kfs: KeyframeStore,
+    n_obs: torch.Tensor,
+    slot: int,
+    pose: torch.Tensor,
+    feats: Features,
+    kp_of_point: torch.Tensor,
+    inlier: torch.Tensor,
+    K: torch.Tensor,
+    frame_id: int,
+    points_xyz: torch.Tensor | None = None,
+):
+    """Invert the frame's point->keypoint matches into the keyframe's
+    keypoint->point table, normalize the keypoints to retina coordinates,
+    register the matched points' current world positions for the later
+    Sim(3) registration (DefKeyFrame.cc:59-74), insert the keyframe at
+    ``slot`` (in place) and bump the matched points' observation counts.
+    Where two points claim one keypoint the higher point id wins (the
+    reference's in-order scatter).  Returns (kfs, n_obs)."""
+    p_cap = kp_of_point.shape[0]
+    k_cap = feats.capacity
+    good = (kp_of_point >= 0) & inlier
+    tgt = torch.where(good, torch.clamp(kp_of_point, 0, k_cap - 1), k_cap)
+    pid_of_kp = last_writer(tgt, k_cap)  # the writer's position IS the point id
+    retina = camera.to_retina(K, feats.xy)
+    kp_xyz = kp_xyz_valid = None
+    if points_xyz is not None:
+        kp_xyz_valid = pid_of_kp >= 0
+        kp_xyz = torch.where(
+            kp_xyz_valid[:, None], points_xyz[torch.clamp(pid_of_kp, min=0)],
+            torch.zeros_like(points_xyz[:1]),
+        )
+    kfs = add_keyframe(kfs, slot, pose, feats, retina, pid_of_kp, frame_id, kp_xyz, kp_xyz_valid)
+    return kfs, n_obs + good.to(n_obs.dtype)

@@ -38,6 +38,13 @@ SIGNATURES = {
          ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
         ctypes.c_int,
     ),
+    "windowed_match": (
+        "windowed_match_launch",
+        [ctypes.c_void_p] * 9
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+           ctypes.c_void_p],
+        ctypes.c_int,
+    ),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

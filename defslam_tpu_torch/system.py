@@ -1,15 +1,17 @@
-"""defslam_tpu_torch.System — the port's public API (tracking only).
+"""defslam_tpu_torch.System — the port's public API (tracking and mapping).
 
-Port of ``defslam_tpu/system.py``'s tracking path: plane-at-z=1
-initialization (DefTracking.cc:583-664), then per frame the synchronous
-track / validate / commit protocol with the wide-window retry and the LOST
-state.  Keyframe insertion (the NRSfM mapping chain) and relocalization
-are later slices of the port and raise ``NotImplementedError``; run in
-localization mode (:meth:`System.activate_localization_mode`) or with a
-``tracking.keyframe_period`` longer than the sequence.  The port always
-runs the synchronous protocol: ``tracking.pipelined`` and
-``pipeline_depth`` are read as off, which changes no result (the JAX
-package's pipelined and synchronous runs give the same outputs).
+Port of ``defslam_tpu/system.py``: plane-at-z=1 initialization
+(DefTracking.cc:583-664), then per frame the synchronous track / validate /
+commit protocol with the wide-window retry and the LOST state, and every
+``tracking.keyframe_period`` frames a keyframe with the whole NRSfM mapping
+chain (``mapping.mapper.keyframe_step``: warps, densification, normals,
+shape-from-normals, Sim(3) registration, re-template, re-anchor).
+Relocalization is a later slice of the port and raises
+``NotImplementedError``.  The port always runs the synchronous protocol and
+the fused keyframe step: ``tracking.pipelined``, ``pipeline_depth`` and
+``tracking.split_keyframe_dispatch`` are read as off, and the keyframe
+step's diagnostics are read back right after it instead of a frame later,
+which changes no result.
 
 Everything runs on ``System.device``: CUDA unless the caller passes
 ``device="cpu"``.  Importing this module turns TF32 off for CUDA matmuls
@@ -29,6 +31,7 @@ import torch
 from defslam_tpu_torch.config import Config
 from defslam_tpu_torch.frontend import Features, extract_features
 from defslam_tpu_torch.geometry import camera as cam
+from defslam_tpu_torch.mapping import mapper
 from defslam_tpu_torch.mapstore import state as store
 from defslam_tpu_torch.template import mesh as meshmod
 from defslam_tpu_torch.tracking import tracker
@@ -36,11 +39,6 @@ from defslam_tpu_torch.tracking import tracker
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-KEYFRAME_SLICE = (
-    "keyframe insertion (the NRSfM mapping chain) is slice 2 of the PyTorch "
-    "port; run in localization mode or with a tracking.keyframe_period longer "
-    "than the sequence"
-)
 RELOCALIZATION_SLICE = "relocalization is slice 3 of the PyTorch port"
 
 
@@ -74,8 +72,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 class System:
-    """Monocular deformable SLAM, tracking only (System.h:62-202 API:
-    TrackMonocular, Reset, ActivateLocalizationMode, GetTrackingState)."""
+    """Monocular deformable SLAM (System.h:62-202 API: TrackMonocular,
+    Reset, Activate/DeactivateLocalizationMode, GetTrackingState)."""
 
     def __init__(self, cfg: Config | str | None = None, device=None):
         if isinstance(cfg, str):
@@ -86,8 +84,11 @@ class System:
         self.K = torch.as_tensor(c.camera.K, device=self.device)
         self.dom = cam.retina_domain(self.K, c.camera.width, c.camera.height)
         self.topo = meshmod.grid_topology(c.mesh.nodes_u, c.mesh.nodes_v)
+        self.bend_warp = mapper.bending_for(self.dom, c.mapping.warp_ctrl_u, c.mapping.warp_ctrl_v)
+        self.bend_sfn = mapper.bending_for(self.dom, c.mapping.sfn_ctrl_u, c.mapping.sfn_ctrl_v)
         self._localization_only = False
         self._metrics: list[dict] = []
+        self._kf_mark = None  # optional stage callback handed to keyframe_step
         self.reset()
 
     # ----------------------------------------------------------- lifecycle
@@ -98,6 +99,10 @@ class System:
         self.kfs = store.empty_keyframes(c, self.device)
         self.points = store.empty_points(c, self.device)
         self.template: meshmod.Template | None = None
+        self.template_ref_kf = -1  # the current template's source keyframe
+        # keyframes created so far: the age reference of recent-point culling
+        self.kf_counter = 0
+        self.last_map_diag: mapper.MappingDiag | None = None  # host values
         self.pose = torch.eye(4, device=self.device)
         # previous validated pose: the constant-velocity motion model state;
         # prev_pose == pose means "no velocity"
@@ -110,6 +115,9 @@ class System:
 
     def activate_localization_mode(self):
         self._localization_only = True
+
+    def deactivate_localization_mode(self):
+        self._localization_only = False
 
     def get_tracking_state(self) -> TrackingState:
         return self.state
@@ -201,6 +209,8 @@ class System:
             store.empty_keyframes(c, dev), 0, self.pose, feats, retina,
             pid_of_kp, self.frame_id,
         )
+        self.template_ref_kf = 0
+        self.kf_counter = 1
         self.frames_since_kf = 0
         self.trajectory.append((timestamp, self.pose.cpu().numpy()))
         return True
@@ -255,10 +265,17 @@ class System:
             not self._localization_only
             and self.frames_since_kf >= c.tracking.keyframe_period
         )
-        if is_kf:
-            self._insert_keyframe(feats, matches, res)
         self._record(timestamp, n_matches, n_inliers, is_kf, False,
                      n_local=int(stats_h[2]), n_dropped=int(stats_h[3]))
+        if is_kf:
+            self._insert_keyframe(feats, matches, res)
+            self.frames_since_kf = 0
+            # the keyframe step may re-register (Sim(3) rescale) or
+            # re-anchor the pose: a velocity spanning that gauge jump would
+            # extrapolate garbage, so it is dropped for one frame
+            self.prev_pose = self.pose
+        # as in the JAX package's fused path, the result reports the
+        # template flag as False; the keyframe's metrics row carries it
         return FrameResult(pose_h, self.state, n_matches, n_inliers, is_kf, False)
 
     def _relocalize(self, img):
@@ -266,9 +283,41 @@ class System:
         (``tracking/pose_opt.py::relocalize`` in the JAX package)."""
         raise NotImplementedError(RELOCALIZATION_SLICE)
 
-    def _insert_keyframe(self, feats, matches, res) -> bool:
-        """Keyframe insertion and the keyframe mapping chain."""
-        raise NotImplementedError(KEYFRAME_SLICE)
+    def _insert_keyframe(self, feats, matches, res) -> None:
+        """CreateNewKeyFrame and the mapping step: one fused
+        ``mapper.keyframe_step``, which also re-anchors pose and template
+        when it swaps the template.  The swap is reported through the
+        keyframe's metrics row, filled by :meth:`_finalize_map`."""
+        self.kfs, self.points, self.template, self.pose, diag = mapper.keyframe_step(
+            self.kfs, self.points, self.template, self.pose, feats,
+            matches.kp_of_point, res.inlier, self.K, self.dom,
+            self.bend_warp, self.bend_sfn, self.template_ref_kf, self.kf_counter,
+            self.frame_id, self.cfg, mark=self._kf_mark,
+        )
+        self.kf_counter += 1
+        self._finalize_map(diag, len(self._metrics) - 1)
+
+    def _finalize_map(self, diag: mapper.MappingDiag, row: int):
+        """Read the keyframe step's scalars back (one host read), keep the
+        template bookkeeping, and fill the keyframe's metrics row."""
+        vals = torch.stack([v.to(torch.float64) for v in diag]).tolist()
+        d = mapper.MappingDiag(*(
+            bool(v) if f in ("accepted", "exploring") else
+            float(v) if f == "reg_scale" else int(v)
+            for f, v in zip(mapper.MappingDiag._fields, vals)
+        ))
+        self.last_map_diag = d
+        if d.accepted:
+            self.template_ref_kf = d.kf_t
+        self._metrics[row].update(
+            template=d.accepted,
+            map_obs_dropped=d.obs_dropped,
+            map_pair_dropped=d.pair_dropped,
+            map_pt_dropped=d.pt_dropped,
+            points_culled=d.n_culled,
+            reg_scale=d.reg_scale,
+        )
+        return d
 
     # ------------------------------------------------------------- metrics
 

@@ -30,3 +30,27 @@ def test_hamming_kernel_matches_plain(cuda_device, n, m):
     torch.cuda.synchronize()
     assert cuda_build.LAUNCHES["hamming_matrix"] == before + 1
     assert torch.equal(out, hamming.hamming_matrix_plain(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["path", "ragged", "one", "outside", "dead", "ties"])
+def test_windowed_match_kernel_matches_plain(cuda_device, case):
+    """The cases of ``chip_smoke.windowed_cases``: the mapping path's
+    shape, ragged shapes, one element, nothing in the window, dead rows and
+    pairs, and minima tied across lanes and column tiles."""
+    from chip_smoke import windowed_cases
+    from defslam_tpu_torch.config import Config
+    from defslam_tpu_torch.ops import matching, windowed_match as wm
+
+    args, radius = windowed_cases(Config(), cuda_device)[case]
+    before = cuda_build.LAUNCHES["windowed_match"]
+    out = wm.windowed_match(*args, radius, matching.INVALID)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["windowed_match"] == before + 1
+    ref = wm.windowed_match_plain(*args, radius, matching.INVALID)
+    for o, r, name in zip(out, ref, ("best", "idx", "second")):
+        assert o.dtype == r.dtype and torch.equal(o, r), (case, name)
+    if case == "outside":
+        assert (out[0] == matching.INVALID).all() and (out[1] == 0).all()
+    if case == "ties":
+        assert (out[0] == out[2]).all()

@@ -1,6 +1,7 @@
-"""The tracking-only System of the PyTorch port against the JAX package's,
-on the CPU: an 8-frame 160x120 sequence, frame 0 initializes, then
-localization mode (no keyframes).
+"""The System of the PyTorch port against the JAX package's, on the CPU.
+Tracking: an 8-frame 160x120 sequence, frame 0 initializes, then
+localization mode (no keyframes).  Mapping: a 22-frame 160x120 sequence
+with a keyframe every 4 frames and template swaps.
 
 Tolerances and why:
 
@@ -16,6 +17,12 @@ Tolerances and why:
   equal, match counts within 1, inlier counts within 2, and the pose within
   3x the distance a 1e-7 relative perturbation of the template after frame
   0 moves the JAX package's own trajectory (or 1e-3, whichever is larger).
+- The mapping run: per-frame tracking states, keyframe and template flags
+  equal; match counts within 2 and inlier counts within 3 (after a template
+  swap both packages re-create the map points from their own SfN surface);
+  the accepted registration scales within 1e-3 relative, culled-point counts
+  within 2; the pose within 2e-2 (the swaps' Sim(3) gauge and the
+  re-anchoring SfT carry the solve's sensitivity across keyframes).
 """
 
 import ast
@@ -143,13 +150,81 @@ def test_system_defaults_to_cuda(cfgs):
 
 
 def test_keyframe_branch_is_a_later_slice(seq, cfgs):
+    """The keyframe branch was a later slice of the port and raised; it now
+    inserts the keyframe and runs the mapping step."""
     _, tcfg = cfgs
     s = System(tcfg, device="cpu")  # localization mode off, keyframe_period 3
+    for t in range(4):
+        assert s.track_monocular(seq.frames[t]) is not None
+    assert [m["keyframe"] for m in s._metrics] == [True, False, False, True]
+    assert int(s.kfs.valid.sum()) == 2 and s.kf_counter == 2 and s.frames_since_kf == 0
+    assert s.last_map_diag.slot == 1 and s.last_map_diag.n_pairs == 1
+    assert "reg_scale" in s._metrics[3] and torch.equal(s.prev_pose, s.pose)
+
+
+def test_localization_mode_toggles_keyframes(seq, cfgs):
+    _, tcfg = cfgs
+    s = System(tcfg, device="cpu")
     s.track_monocular(seq.frames[0])
-    s.track_monocular(seq.frames[1])
-    s.track_monocular(seq.frames[2])
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        s.track_monocular(seq.frames[3])
+    s.activate_localization_mode()
+    for t in range(1, 5):
+        s.track_monocular(seq.frames[t])
+    assert s.kf_counter == 1 and not any(m["keyframe"] for m in s._metrics[1:])
+    s.deactivate_localization_mode()
+    s.track_monocular(seq.frames[5])
+    assert s._metrics[5]["keyframe"] and s.kf_counter == 2
+
+
+@pytest.fixture(scope="module")
+def mapping_runs():
+    """The JAX package's and the port's 22-frame runs with keyframes, at the
+    size of tests/test_retemplate.py."""
+    from defslam_tpu.config import MappingConfig
+
+    seq = make_sequence(n_frames=22, height=120, width=160, max_amp=0.05, camera_motion=0.5,
+                        seed=5)
+    cfg = Config(
+        camera=seq.camera,
+        orb=OrbConfig(n_features=400, n_levels=3, max_keypoints=512),
+        sft=SfTConfig(lm_iterations=25),
+        tracking=TrackingConfig(keyframe_period=4),
+        capacity=CapacityConfig(max_map_points=2048, max_keyframes=10),
+        mapping=MappingConfig(points_to_template=60, chi_limit=0.2),
+    )
+    ref = JaxSystem(cfg)
+    port = System(config_from_dict(dataclasses.asdict(cfg)), device="cpu")
+    for t, f in enumerate(seq.frames):
+        ref.track_monocular(f, timestamp=float(t))
+        port.track_monocular(f, timestamp=float(t))
+    ref.flush()
+    return ref, port
+
+
+def test_mapping_run_matches_reference(mapping_runs):
+    ref, port = mapping_runs
+    assert len(port._metrics) == len(ref._metrics) == 22
+    for mj, mt in zip(ref._metrics, port._metrics):
+        assert mt["state"] == mj["state"] == "OK"
+        assert mt["keyframe"] == mj["keyframe"] and mt["template"] == mj["template"], (mj, mt)
+        assert abs(mt["matches"] - mj["matches"]) <= 2, (mj, mt)
+        assert abs(mt["inliers"] - mj["inliers"]) <= 3, (mj, mt)
+        if mj["keyframe"] and mj["frame"] > 0:
+            assert mt["reg_scale"] == pytest.approx(mj["reg_scale"], rel=1e-3)
+            assert abs(mt["points_culled"] - mj["points_culled"]) <= 2
+            for k in ("map_obs_dropped", "map_pair_dropped", "map_pt_dropped"):
+                assert mt[k] == mj[k]
+    for (_, Tj), (_, Tt) in zip(ref.trajectory, port.trajectory):
+        assert np.abs(Tt - np.asarray(Tj)).max() <= 2e-2
+    assert port.template_ref_kf == ref.template_ref_kf and port.kf_counter == ref.kf_counter
+
+
+def test_mapping_run_swaps_the_template(mapping_runs):
+    _, port = mapping_runs
+    kf_rows = [m for m in port._metrics if m["keyframe"]]
+    assert [m["frame"] for m in kf_rows] == [0, 4, 8, 12, 16, 20]
+    assert sum(m["template"] for m in kf_rows[1:]) >= 1
+    assert int(port.kfs.valid.sum()) == 6
+    assert int(port.kfs.surf_valid.sum()) >= 1
 
 
 def test_relocalization_branch_is_a_later_slice(seq, cfgs):
