@@ -1,6 +1,7 @@
 """Drive the PyTorch port on one CUDA card and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # every phase
+    python3 chip_smoke.py --kernels   # phases 1-3 only (no ``ok`` line)
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -9,7 +10,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes and at ragged and edge shapes (both kernels are
    integer: exact) and time the kernel, the plain version and a PyTorch
-   library route with CUDA events;
+   library route with CUDA events: per single call (``kernel_ms``), per
+   call of 20 back to back (``burst_ms``), per launch of a captured CUDA
+   graph of 20 launches on pre-allocated outputs (``device_ms``: the host
+   taken out), and the wrapper's host time per call (``host_us``); the
+   bounds use the instruction rates the card reports;
 4. run the tracking slice at full width (the default Config, 640x480,
    8 levels, 1200 features): System on the card, frame 0 initializes, then
    localization mode for frames 1..11; every frame must track, the Hamming
@@ -53,9 +58,10 @@ from defslam_tpu_torch.system import System, TrackingState
 from defslam_tpu_torch.tracking import tracker
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
-FP32_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores
+INT8_TENSOR_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate (no 1-bit rate is published)
 N_FRAMES = 12  # tracking slice; the mapping slice runs all 2 * N_FRAMES
-HAMMING_SHAPES = [(2048, 1536), (200, 333), (256, 128), (1, 1)]
+HAMMING_SHAPES = [(2048, 1536), (200, 333), (256, 128), (1, 1),
+                  (2049, 1537), (17, 9), (5, 4), (64, 1535)]
 
 
 def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
@@ -93,6 +99,60 @@ def cuda_burst_ms(fn, launches: int = 20, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def cuda_graph_ms(launch, launches: int = 20, reps: int = 5) -> float:
+    """Median milliseconds per launch over ``reps`` replays of a captured
+    CUDA graph that holds ``launches`` calls of ``launch`` (a wrapper call
+    on pre-allocated outputs), each replay between two CUDA events: the
+    device's time per launch with the host taken out.  The outputs are not
+    flushed from the 50 MB L2 between launches (the largest, B1's 12.6 MB
+    matrix, fits it): the real callers read them straight back."""
+    launch()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            launch()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    return statistics.median(times)
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds per call of ``fn``: the host clock over ``calls``
+    calls made without a synchronise (one follows the last)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def card_rates() -> dict:
+    """The card's instruction rates, from what it reports: one instruction
+    is one operation.  32-bit float and integer instructions per second =
+    SMs x 128 lanes x the SM clock; ``__popc`` results per second = SMs x
+    16 x the SM clock (the throughput table of NVIDIA's CUDA C manual for
+    compute capability 9.0)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
+    return {"sms": sms, "sm_clock_mhz": mhz,
+            "instr_per_s": sms * 128 * mhz * 1e6, "popc_per_s": sms * 16 * mhz * 1e6}
+
+
 def unpack_bits(desc: torch.Tensor) -> torch.Tensor:
     """(N, 8) int32 words -> (N, 256) float 0/1 bits (for the library
     yardstick only)."""
@@ -101,37 +161,63 @@ def unpack_bits(desc: torch.Tensor) -> torch.Tensor:
     return ((words[:, :, None] >> shifts) & 1).reshape(desc.shape[0], 256).float()
 
 
-def check_hamming(dev) -> dict:
-    """Kernel vs plain at every shape (exact), timings at the path shape."""
+def _words(rng, shape, dev) -> torch.Tensor:
+    """Random 32-bit descriptor words as int32 (sign bit set in half)."""
+    return torch.as_tensor(rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32),
+                           device=dev)
+
+
+def hamming_cases(dev) -> dict:
+    """name -> (desc_a, desc_b): the tracking path's shape first, then
+    ragged shapes (a row stride that is no multiple of 16 bytes, N or M
+    under one tile, one element), and ``signbit``: every word 0x80000000 or
+    0xFFFFFFFF, which a signed shift or compare would get wrong."""
     rng = np.random.default_rng(0)
-    rows = []
-    for n, m in HAMMING_SHAPES:
-        a = torch.as_tensor(rng.integers(-2**31, 2**31, (n, 8), dtype=np.int64)
-                            .astype(np.int32), device=dev)
-        b = torch.as_tensor(rng.integers(-2**31, 2**31, (m, 8), dtype=np.int64)
-                            .astype(np.int32), device=dev)
+    cases = {f"{n}x{m}": (_words(rng, (n, 8), dev), _words(rng, (m, 8), dev))
+             for n, m in HAMMING_SHAPES}
+    pick = np.array([-2**31, -1], dtype=np.int32)
+    cases["signbit"] = tuple(torch.as_tensor(pick[rng.integers(0, 2, (k, 8))], device=dev)
+                             for k in (200, 333))
+    return cases
+
+
+def check_hamming(dev, rates: dict) -> dict:
+    """Kernel vs plain in every case (exact), timings at the path shape."""
+    worst = 0
+    cases = hamming_cases(dev)
+    for name, (a, b) in cases.items():
         out = hamming.hamming_matrix(a, b)
         torch.cuda.synchronize()
         ref = hamming.hamming_matrix_plain(a, b)
         err = int((out - ref).abs().max())
         exact = bool(torch.equal(out, ref))
-        print(f"hamming_matrix {n}x{m}: exact={exact} max_abs_err={err}", flush=True)
+        print(f"hamming_matrix {name}: exact={exact} max_abs_err={err}", flush=True)
         if not exact:
-            raise SystemExit(f"hamming_matrix differs from its plain version at {n}x{m}")
-        rows.append((n, m, a, b, err))
-    n, m, a, b, err = rows[0]
+            raise SystemExit(f"hamming_matrix differs from its plain version in case {name}")
+        worst = max(worst, err)
+    n, m = HAMMING_SHAPES[0]
+    a, b = cases[f"{n}x{m}"]
     ua, ub = unpack_bits(a), unpack_bits(b)
     kernel_ms = cuda_ms(lambda: hamming.hamming_matrix(a, b))
     burst_ms = cuda_burst_ms(lambda: hamming.hamming_matrix(a, b))
+    out = torch.empty((n, m), dtype=torch.int32, device=dev)
+    device_ms = cuda_graph_ms(lambda: hamming.hamming_matrix(a, b, out=out))
+    if not torch.equal(out, hamming.hamming_matrix_plain(a, b)):
+        raise SystemExit("hamming_matrix: the graph's launches left a wrong result")
+    call_us = host_us(lambda: hamming.hamming_matrix(a, b))
     plain_ms = cuda_ms(lambda: hamming.hamming_matrix_plain(a, b))
     library_ms = cuda_ms(lambda: torch.cdist(ua, ub, p=0))
     lib = torch.cdist(ua, ub, p=0)
     if not torch.equal(lib.round().int(), hamming.hamming_matrix(a, b)):
         raise SystemExit("torch.cdist(p=0) yardstick disagrees with the kernel")
+    # the bound: the least time of the card for this function.  Bytes: both
+    # inputs read once, the output written once.  Operations: the 256-bit
+    # AND + popcount product of every pair on the tensor cores, at the int8
+    # rate (the lowest-precision rate the data sheet gives).  Beside it the
+    # floor of any XOR + __popc design: 8 popcounts per output.
     n_bytes = 4 * (8 * n + 8 * m + n * m)
-    n_ops = 3 * 8 * n * m  # xor, popc, add per word
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = 2 * 256 * n * m / INT8_TENSOR_OPS_PER_S * 1e3
     return {
         "name": "hamming_matrix",
         "route": "cuda",
@@ -139,14 +225,17 @@ def check_hamming(dev) -> dict:
         "replaces": "defslam_tpu/ops/pallas_kernels.py:55",
         "shape": [n, m],
         "exact": True,
-        "max_abs_err": max(r[4] for r in rows),
+        "max_abs_err": worst,
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
         "burst_ms": burst_ms,
+        "device_ms": device_ms,
+        "host_us": call_us,
         "plain_ms": plain_ms,
         "library_ms": library_ms,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "popc_floor_ms": 8 * n * m / rates["popc_per_s"] * 1e3,
     }
 
 
@@ -168,8 +257,14 @@ def windowed_cases(cfg: Config, dev) -> dict:
     (max_warp_pairs x max_keypoints^2) with positions spread over the
     camera's retina and the densification radius; the others are ragged and
     edge shapes: one element, nothing inside the window, dead rows and
-    pairs, and minima tied across the column blocks that different lanes
-    and tiles own."""
+    pairs, minima tied across the lane groups and warps that share a row's
+    columns, NaN positions in rows and columns (``nan``), more columns than
+    one staged chunk holds (``wide``), a radius that admits every pair
+    (``dense``: the compaction saturated, the kernel's worst case), the
+    path's shape with only pair 0 alive, as at the first keyframe
+    (``deadpairs``), and rows in a cluster of columns beside sparse rows, so
+    that within one warp some rows admit more columns than a queue holds
+    and others few (``overflow``)."""
     rng = np.random.default_rng(11)
     cam = cfg.camera
     lo = (-cam.cx / cam.fx, -cam.cy / cam.fy)
@@ -191,7 +286,29 @@ def windowed_cases(cfg: Config, dev) -> dict:
     ties[1][:] = ties[1][:, :1].clone()  # one descriptor in every column: all minima tie
     ties[1][0, 300:] ^= 1
     cases["ties"] = (ties, 5.0)
+    nan = _match_inputs(rng, 2, 120, 260, dev)
+    nan[2][0, ::7, 0] = float("nan")
+    nan[2][1, 3::11, 1] = float("nan")
+    nan[3][0, 5::9, 1] = float("nan")
+    nan[3][1, ::13, 0] = float("nan")
+    cases["nan"] = (nan, 0.6)
+    cases["wide"] = (_match_inputs(rng, 2, 40, 6000, dev), 0.3)
+    cases["dense"] = (_match_inputs(rng, 2, k, k, dev, lo, hi, 0.78), 10.0)
+    deadpairs = _match_inputs(rng, cfg.capacity.max_warp_pairs, k, k, dev, lo, hi, 0.78)
+    deadpairs[4][1:] = False
+    deadpairs[5][1:] = False
+    cases["deadpairs"] = (deadpairs, cases["path"][1])
+    overflow = _match_inputs(rng, 3, 90, 500, dev)
+    overflow[2][:, :45] *= 0.1  # rows 0..44 and columns 0..249 in one cluster
+    overflow[3][:, :250] *= 0.1
+    cases["overflow"] = (overflow, 0.25)
     return cases
+
+
+def windowed_out(b: int, n: int, dev):
+    """Pre-allocated outputs for ``windowed_match(..., out=)``."""
+    return (torch.empty((2, b, n), dtype=torch.int32, device=dev),
+            torch.empty((b, n), dtype=torch.int64, device=dev))
 
 
 def windowed_library(da, db, xa, xb, va, vb, radius, invalid):
@@ -209,7 +326,7 @@ def windowed_library(da, db, xa, xb, va, vb, radius, invalid):
     return torch.stack(best), torch.stack(second)
 
 
-def check_windowed_match(cfg: Config, dev) -> dict:
+def check_windowed_match(cfg: Config, dev, rates: dict) -> dict:
     """Kernel vs plain at every case (exact on best, idx and second),
     timings and the bound at the path's shape."""
     inv = matching.INVALID
@@ -223,34 +340,52 @@ def check_windowed_match(cfg: Config, dev) -> dict:
             raise SystemExit("windowed_match did not launch its kernel on a CUDA tensor")
         ref = windowed_match.windowed_match_plain(*args, radius, inv)
         errs = [int((o.long() - r.long()).abs().max()) for o, r in zip(out, ref)]
-        exact = all(torch.equal(o, r) for o, r in zip(out, ref))
+        exact = all(o.dtype == r.dtype and torch.equal(o, r) for o, r in zip(out, ref))
         shape = [args[0].shape[0], args[0].shape[1], args[1].shape[1]]
         print(f"windowed_match {name} {shape}: exact={exact} max_abs_err(best,idx,second)={errs}",
               flush=True)
         if not exact:
             raise SystemExit(f"windowed_match differs from its plain version in case {name}")
         worst = max(worst, *errs)
+
+    def device_ms(name):
+        args, radius = cases[name]
+        pre = windowed_out(args[0].shape[0], args[0].shape[1], dev)
+        ms = cuda_graph_ms(lambda: windowed_match.windowed_match(*args, radius, inv, out=pre))
+        got = windowed_match.windowed_match(*args, radius, inv, out=pre)
+        ref = windowed_match.windowed_match_plain(*args, radius, inv)
+        if not all(torch.equal(o, r) for o, r in zip(got, ref)):
+            raise SystemExit(f"windowed_match: wrong result on pre-allocated outputs ({name})")
+        return ms
+
     args, radius = cases["path"]
     da, db, xa, xb, va, vb = args
     b, n, m = da.shape[0], da.shape[1], db.shape[1]
     kernel_ms = cuda_ms(lambda: windowed_match.windowed_match(*args, radius, inv))
     burst_ms = cuda_burst_ms(lambda: windowed_match.windowed_match(*args, radius, inv))
+    device = {name: device_ms(name) for name in ("path", "dense", "deadpairs")}
+    print("windowed_match device_ms", json.dumps(device), flush=True)
+    call_us = host_us(lambda: windowed_match.windowed_match(*args, radius, inv))
     plain_ms = cuda_ms(lambda: windowed_match.windowed_match_plain(*args, radius, inv), reps=5)
     library_ms = cuda_ms(lambda: windowed_library(*args, radius, inv), reps=5)
     lib_best, lib_second = windowed_library(*args, radius, inv)
     best, _, second = windowed_match.windowed_match(*args, radius, inv)
     if not (torch.equal(lib_best.int(), best) and torch.equal(lib_second.int(), second)):
         raise SystemExit("the library yardstick disagrees with the windowed_match kernel")
-    # the bound, from this run's data: every (row, column) pair costs the
-    # validity and window test (2 subtractions, 2 absolute values, a max, a
-    # compare, 2 flag tests); a pair the window admits costs 8 x (xor, popc,
-    # add) and a 4-operation update of the running top-2 besides
+    # the bound, from this run's data, one instruction one operation, and
+    # only what the function needs: validity is a property of a row and of a
+    # column, not of a pair, so a (row, column) pair costs the window test
+    # alone, 2 subtractions and 2 compares of magnitudes, at the card's
+    # instruction rate; a pair the window admits costs 8 x (xor, add) and a
+    # 4-instruction update of the running top-2 at that rate and 8
+    # popcounts at the __popc rate
     win = (xa[:, :, None, :] - xb[:, None, :, :]).abs().amax(dim=-1) <= radius
-    n_admitted = int((win & va[:, :, None] & vb[:, None, :]).sum())
-    n_ops = 8 * b * n * m + 28 * n_admitted
-    n_bytes = sum(t.numel() * t.element_size() for t in args) + 3 * 4 * b * n
+    admitted = win & va[:, :, None] & vb[:, None, :]
+    n_admitted = int(admitted.sum())
+    n_bytes = sum(t.numel() * t.element_size() for t in args) + (4 + 8 + 4) * b * n
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = ((4 * b * n * m + 20 * n_admitted) / rates["instr_per_s"]
+             + 8 * n_admitted / rates["popc_per_s"]) * 1e3
     return {
         "name": "windowed_match",
         "route": "cuda",
@@ -258,11 +393,16 @@ def check_windowed_match(cfg: Config, dev) -> dict:
         "replaces": "defslam_tpu/ops/pallas_kernels.py:157",
         "shape": [b, n, m],
         "admitted_pairs": n_admitted,
+        "max_admitted_per_row": int(admitted.sum(dim=2).max()),
         "exact": True,
         "max_abs_err": worst,
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
         "burst_ms": burst_ms,
+        "device_ms": device["path"],
+        "device_ms_dense": device["dense"],
+        "device_ms_deadpairs": device["deadpairs"],
+        "host_us": call_us,
         "plain_ms": plain_ms,
         "library_ms": library_ms,
         "bound_ms": max(t_bytes, t_ops),
@@ -508,7 +648,7 @@ def keyframe_card_vs_cpu(frames, cfg: Config, dev, tol: float = 5e-3) -> dict:
     return row
 
 
-def main() -> int:
+def main(kernels_only: bool = False) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -538,8 +678,14 @@ def main() -> int:
                         brightness_drift=0.1)
     cfg = Config(camera=seq.camera)
 
-    kern_h = check_hamming(dev)
-    kern_w = check_windowed_match(cfg, dev)
+    rates = card_rates()
+    print("card_rates", json.dumps(rates), flush=True)
+    kern_h = check_hamming(dev, rates)
+    kern_w = check_windowed_match(cfg, dev, rates)
+    if kernels_only:
+        print(smi, flush=True)
+        print(json.dumps({"kernels": [kern_h, kern_w]}), flush=True)
+        return 0
 
     # ---- tracking slice
     frames = seq.frames[:N_FRAMES]
@@ -623,4 +769,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(kernels_only="--kernels" in sys.argv[1:]))

@@ -2,8 +2,8 @@
 
 Replaces ``defslam_tpu/ops/pallas_kernels.py::hamming_matrix_pallas``.  On
 a CUDA tensor :func:`hamming_matrix` launches the hand-written kernel in
-``csrc/hamming.cu`` (XOR + popcount, see the bound and design notes there)
-or raises; on a CPU tensor it runs :func:`hamming_matrix_plain`.  There is
+``csrc/hamming.cu`` (the bit product on the tensor cores, see the bound and
+design notes there) or raises; on a CPU tensor it runs :func:`hamming_matrix_plain`.  There is
 no fallback from the kernel to the plain version.
 
 Descriptors are (N, 8) int32 tensors holding the 256 descriptor bits (the
@@ -45,27 +45,29 @@ def _check(name: str, d: torch.Tensor) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
-    """(N, 8) x (M, 8) descriptor words -> (N, M) int32 Hamming distances."""
+def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
+    """(N, 8) x (M, 8) descriptor words -> (N, M) int32 Hamming distances,
+    written into ``out`` (contiguous (N, M) int32 on the same device) where
+    one is given."""
     _check("desc_a", desc_a)
     _check("desc_b", desc_b)
-    if desc_a.device != desc_b.device:
-        raise ValueError(f"descriptors on {desc_a.device} and {desc_b.device}")
-    if desc_a.device.type == "cpu":
-        return hamming_matrix_plain(desc_a, desc_b)
-    if desc_a.device.type != "cuda":
-        raise ValueError(f"hamming_matrix: unsupported device {desc_a.device}")
+    dev = desc_a.device
+    if dev != desc_b.device:
+        raise ValueError(f"descriptors on {dev} and {desc_b.device}")
     n, m = desc_a.shape[0], desc_b.shape[0]
-    out = torch.empty((n, m), dtype=torch.int32, device=desc_a.device)
+    if out is not None and (out.dtype != torch.int32 or out.shape != (n, m)
+                            or out.device != dev or not out.is_contiguous()):
+        raise ValueError(f"out: expected a contiguous ({n}, {m}) int32 tensor on {dev}")
+    if dev.type == "cpu":
+        plain = hamming_matrix_plain(desc_a, desc_b)
+        return plain if out is None else out.copy_(plain)
+    if dev.type != "cuda":
+        raise ValueError(f"hamming_matrix: unsupported device {dev}")
+    if out is None:
+        out = torch.empty((n, m), dtype=torch.int32, device=dev)
     if n == 0 or m == 0:
         return out
-    lib = cuda_build.load("hamming")
-    with torch.cuda.device(desc_a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.hamming_matrix_launch(
-            desc_a.data_ptr(), desc_b.data_ptr(), out.data_ptr(), n, m, stream
-        )
-    if err != 0:
-        raise RuntimeError(f"hamming_matrix kernel launch failed: cudaError_t {err}")
+    cuda_build.launch("hamming", dev, desc_a.data_ptr(), desc_b.data_ptr(), out.data_ptr(), n, m)
     cuda_build.LAUNCHES["hamming_matrix"] += 1
     return out

@@ -42,53 +42,65 @@ def windowed_match_plain(desc_a, desc_b, xy_a, xy_b, valid_a, valid_b, radius: f
     return torch.stack(best), torch.stack(idx), torch.stack(second)
 
 
-def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+def _check(name: str, t: torch.Tensor, dtype, shape, dev) -> None:
+    if t.dtype != dtype or t.shape != shape:
         raise ValueError(f"{name}: expected {tuple(shape)} {dtype}, got {tuple(t.shape)} {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.device != dev:
+        raise ValueError(f"{name}: on {t.device}, the row descriptors on {dev}")
 
 
 def windowed_match(desc_a: torch.Tensor, desc_b: torch.Tensor, xy_a: torch.Tensor,
                    xy_b: torch.Tensor, valid_a: torch.Tensor, valid_b: torch.Tensor,
-                   radius: float, invalid: int):
+                   radius: float, invalid: int, out=None):
     """desc_a (B, N, 8), desc_b (B, M, 8) int32 descriptor words; xy_a
     (B, N, 2), xy_b (B, M, 2) float32 positions in one frame; valid_a
     (B, N), valid_b (B, M) bool; ``invalid`` the sentinel distance (> 256).
-    Returns (best (B, N) int32, idx (B, N) int64, second (B, N) int32)."""
+    Returns (best (B, N) int32, idx (B, N) int64, second (B, N) int32).
+    On the card the kernel loads a descriptor as two 16-byte words and a
+    position as one 8-byte word: the descriptor tensors must start on a
+    16-byte and the position tensors on an 8-byte boundary (any tensor that
+    owns its storage does; a view at an odd offset raises ValueError).
+    ``out``, where given, is a pair of contiguous tensors on the same
+    device to write into: (2, B, N) int32, whose two planes become ``best``
+    and ``second``, and (B, N) int64 for ``idx``."""
     if desc_a.ndim != 3 or desc_b.ndim != 3:
         raise ValueError("windowed_match: descriptors must be (B, N, 8)")
     b, n, _ = desc_a.shape
     m = desc_b.shape[1]
-    _check("desc_a", desc_a, torch.int32, (b, n, 8))
-    _check("desc_b", desc_b, torch.int32, (b, m, 8))
-    _check("xy_a", xy_a, torch.float32, (b, n, 2))
-    _check("xy_b", xy_b, torch.float32, (b, m, 2))
-    _check("valid_a", valid_a, torch.bool, (b, n))
-    _check("valid_b", valid_b, torch.bool, (b, m))
+    dev = desc_a.device
+    _check("desc_a", desc_a, torch.int32, (b, n, 8), dev)
+    _check("desc_b", desc_b, torch.int32, (b, m, 8), dev)
+    _check("xy_a", xy_a, torch.float32, (b, n, 2), dev)
+    _check("xy_b", xy_b, torch.float32, (b, m, 2), dev)
+    _check("valid_a", valid_a, torch.bool, (b, n), dev)
+    _check("valid_b", valid_b, torch.bool, (b, m), dev)
     if invalid <= 256:
         raise ValueError("windowed_match: the invalid sentinel must exceed 256")
-    dev = desc_a.device
-    if any(t.device != dev for t in (desc_b, xy_a, xy_b, valid_a, valid_b)):
-        raise ValueError("windowed_match: tensors on different devices")
+    if out is not None:
+        pair, idx = out
+        _check("out[0]", pair, torch.int32, (2, b, n), dev)
+        _check("out[1]", idx, torch.int64, (b, n), dev)
     if dev.type == "cpu":
-        return windowed_match_plain(desc_a, desc_b, xy_a, xy_b, valid_a, valid_b, radius, invalid)
+        res = windowed_match_plain(desc_a, desc_b, xy_a, xy_b, valid_a, valid_b, radius, invalid)
+        if out is None:
+            return res
+        best, second = pair.unbind(0)
+        return best.copy_(res[0]), idx.copy_(res[1]), second.copy_(res[2])
     if dev.type != "cuda":
         raise ValueError(f"windowed_match: unsupported device {dev}")
-    best = torch.empty((b, n), dtype=torch.int32, device=dev)
-    idx = torch.empty((b, n), dtype=torch.int32, device=dev)
-    second = torch.empty((b, n), dtype=torch.int32, device=dev)
+    if (desc_a.data_ptr() | desc_b.data_ptr()) % 16 or (xy_a.data_ptr() | xy_b.data_ptr()) % 8:
+        raise ValueError("windowed_match: descriptors must be 16-byte and positions 8-byte aligned")
+    if out is None:
+        pair = torch.empty((2, b, n), dtype=torch.int32, device=dev)
+        idx = torch.empty((b, n), dtype=torch.int64, device=dev)
+    best, second = pair.unbind(0)
     if b == 0 or n == 0:
-        return best, idx.long(), second
-    lib = cuda_build.load("windowed_match")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.windowed_match_launch(
-            desc_a.data_ptr(), desc_b.data_ptr(), xy_a.data_ptr(), xy_b.data_ptr(),
-            valid_a.data_ptr(), valid_b.data_ptr(), best.data_ptr(), idx.data_ptr(),
-            second.data_ptr(), b, n, m, float(radius), int(invalid), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"windowed_match kernel launch failed: cudaError_t {err}")
+        return best, idx, second
+    cuda_build.launch(
+        "windowed_match", dev, desc_a.data_ptr(), desc_b.data_ptr(), xy_a.data_ptr(),
+        xy_b.data_ptr(), valid_a.data_ptr(), valid_b.data_ptr(), best.data_ptr(), idx.data_ptr(),
+        second.data_ptr(), b, n, m, float(radius), int(invalid))
     cuda_build.LAUNCHES["windowed_match"] += 1
-    return best, idx.long(), second
+    return best, idx, second

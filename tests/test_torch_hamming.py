@@ -29,7 +29,8 @@ def _t(a):
     return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a.copy())
 
 
-@pytest.mark.parametrize("n,m,seed", [(200, 333, 0), (256, 128, 1)])
+@pytest.mark.parametrize("n,m,seed", [(200, 333, 0), (256, 128, 1), (17, 9, 10), (5, 4, 11),
+                                      (64, 299, 12), (257, 193, 13), (1, 1, 14)])
 def test_plain_matches_jax_and_pallas(n, m, seed):
     rng = np.random.default_rng(seed)
     a, b = _desc(rng, n), _desc(rng, m)
@@ -38,6 +39,51 @@ def test_plain_matches_jax_and_pallas(n, m, seed):
     out = hamming.hamming_matrix_plain(_t(a), _t(b)).numpy()
     np.testing.assert_array_equal(out, ref)
     np.testing.assert_array_equal(out, pallas)
+
+
+def _sign_bit_words(rng, n):
+    """Every word 0x80000000 or 0xFFFFFFFF: the sign bit of the int32 view
+    is always set."""
+    return np.array([0x80000000, 0xFFFFFFFF], dtype=np.uint32)[rng.integers(0, 2, (n, 8))]
+
+
+def test_sign_bit_words_match_jax_and_pallas():
+    rng = np.random.default_rng(15)
+    a, b = _sign_bit_words(rng, 200), _sign_bit_words(rng, 300)
+    assert (_t(a) < 0).all() and (_t(b) < 0).all()
+    ref = np.asarray(jm.hamming_matrix(jnp.asarray(a), jnp.asarray(b)))
+    pallas = np.asarray(hamming_matrix_pallas(jnp.asarray(a), jnp.asarray(b), interpret=True))
+    out = hamming.hamming_matrix_plain(_t(a), _t(b)).numpy()
+    np.testing.assert_array_equal(out, ref)
+    np.testing.assert_array_equal(out, pallas)
+
+
+@pytest.mark.parametrize("words", ["random", "signbit"])
+def test_and_popcount_identity(words):
+    """hamming(a, b) = popc(a) + popc(b) - 2 popc(a & b): what the CUDA
+    kernel computes with the tensor cores' AND + popcount product, written
+    here with the plain popcount on words taken as unsigned."""
+    rng = np.random.default_rng(16)
+    make = _desc if words == "random" else _sign_bit_words
+    a, b = _t(make(rng, 120)), _t(make(rng, 150))
+    ua, ub = a.to(torch.int64) & 0xFFFFFFFF, b.to(torch.int64) & 0xFFFFFFFF
+    pa = hamming._popcount32(ua).sum(dim=1)
+    pb = hamming._popcount32(ub).sum(dim=1)
+    pab = hamming._popcount32(ua[:, None, :] & ub[None, :, :]).sum(dim=2)
+    got = (pa[:, None] + pb[None, :] - 2 * pab).to(torch.int32)
+    assert torch.equal(got, hamming.hamming_matrix_plain(a, b))
+
+
+def test_wrapper_writes_into_out_on_cpu():
+    rng = np.random.default_rng(17)
+    a, b = _t(_desc(rng, 13)), _t(_desc(rng, 7))
+    out = torch.full((13, 7), -1, dtype=torch.int32)
+    got = hamming.hamming_matrix(a, b, out=out)
+    assert got is out and torch.equal(out, hamming.hamming_matrix_plain(a, b))
+    with pytest.raises(ValueError, match="out"):
+        hamming.hamming_matrix(a, b, out=torch.zeros((13, 8), dtype=torch.int32))
+    with pytest.raises(ValueError, match="out"):
+        hamming.hamming_matrix(a, b, out=torch.zeros((13, 7), dtype=torch.int64))
 
 
 def test_wrapper_uses_plain_on_cpu_and_counts_no_launch():

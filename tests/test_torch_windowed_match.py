@@ -60,10 +60,32 @@ def _case(name):
         return d, 5.0
     if name == "tile_multiple":
         return _inputs(7, 2, 256, 128), 0.6
+    if name == "nan":  # NaN positions in rows and columns admit nothing
+        d = _inputs(8, 2, 120, 260)
+        d["xa"][0, ::7, 0] = np.nan
+        d["xa"][1, 3::11, 1] = np.nan
+        d["xb"][0, 5::9, 1] = np.nan
+        d["xb"][1, ::13, 0] = np.nan
+        return d, 0.6
+    if name == "wide":  # few rows, many columns
+        return _inputs(9, 2, 40, 300), 0.3
+    if name == "dense":  # the radius admits every pair of valid keypoints
+        return _inputs(10, 2, 150, 290), 10.0
+    if name == "deadpairs":  # only pair 0 alive, as at the first keyframe
+        d = _inputs(11, 4, 200, 200)
+        d["va"][1:] = False
+        d["vb"][1:] = False
+        return d, 0.4
+    if name == "overflow":  # clustered rows admit hundreds of columns, the others few
+        d = _inputs(12, 3, 90, 280)
+        d["xa"][:, :45] *= 0.1
+        d["xb"][:, :140] *= 0.1
+        return d, 0.25
     raise KeyError(name)
 
 
-CASES = ["ragged", "one", "outside", "dead", "ties", "tile_multiple"]
+CASES = ["ragged", "one", "outside", "dead", "ties", "tile_multiple",
+         "nan", "wide", "dense", "deadpairs", "overflow"]
 
 
 def _plain(d, radius):
@@ -107,6 +129,34 @@ def test_plain_equals_per_pair_reference(case):
         assert (best == second).all() and (idx[1] == 0).all() and ((idx[0] == 0) | (idx[0] == 300)).all()
     if case == "dead":
         assert (best[1] == INVALID).all() and (best[2] == INVALID).all() and (idx[1] == 0).all()
+    if case == "nan":
+        assert (best[0, ::7] == INVALID).all() and (idx[0, ::7] == 0).all()
+        assert (best[1, 3::11] == INVALID).all() and not (idx[0] % 9 == 5)[best[0] < INVALID].any()
+        assert (best < INVALID).sum() > 100
+    if case == "dense":
+        n_cols = torch.from_numpy(d["vb"]).sum(dim=1, keepdim=True)
+        assert ((best < INVALID) == (torch.from_numpy(d["va"]) & (n_cols > 0))).all()
+    if case == "overflow":
+        win = np.abs(d["xa"][:, :, None, :] - d["xb"][:, None, :, :]).max(axis=-1) <= radius
+        per_row = (win & d["va"][:, :, None] & d["vb"][:, None, :]).sum(axis=2)
+        assert (per_row[:, :45] > 64).any() and (per_row[:, 45:] < 64).any()
+    if case == "deadpairs":
+        assert (best[1:] == INVALID).all() and (idx[1:] == 0).all() and (best[0] < INVALID).any()
+
+
+def test_wrapper_writes_into_out_on_cpu():
+    d, radius = _case("ragged")
+    b, n = d["va"].shape
+    pre = (torch.full((2, b, n), -1, dtype=torch.int32), torch.full((b, n), -1, dtype=torch.int64))
+    t = lambda a: torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)  # noqa: E731
+    args = [t(d[k]) for k in ("da", "db", "xa", "xb", "va", "vb")]
+    best, idx, second = wm.windowed_match(*args, radius, INVALID, out=pre)
+    ref = _plain(d, radius)
+    assert best.data_ptr() == pre[0][0].data_ptr() and second.data_ptr() == pre[0][1].data_ptr()
+    assert idx is pre[1]
+    assert all(torch.equal(o, r) for o, r in zip((best, idx, second), ref))
+    with pytest.raises(ValueError, match="out"):
+        wm.windowed_match(*args, radius, INVALID, out=(pre[0], pre[1].int()))
 
 
 def test_sentinel_is_the_reference_value():
