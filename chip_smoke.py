@@ -29,7 +29,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the run must agree with System(device="cpu") on the same frames;
 6. take the state just before the first keyframe, run ``keyframe_step`` on
    it on the card and on the CPU, and compare the results;
-7. print a ``timing`` line, one ``{"kernels": [...]}`` line, then the last
+7. the relocalization slice: the 12-frame render of the same motion at
+   full width, localization mode after frame 0; every frame must track,
+   ``pose_opt.relocalize`` must succeed at least once and launch B1 once
+   per call, and states and relocalization outcomes (ok, inliers within
+   2%) must equal the CPU's;
+8. the occlusion run: the 24-frame render with frames 13-14 blanked,
+   keyframes on, through ``track_monocular_ct`` with the metrics files on;
+   frames 13-14 must go LOST, frame 15 come back through a successful
+   relocalization without a re-initialization, the GT files be written,
+   and the states equal the CPU's through frame 16.  It runs twice on the
+   card (is the card repeatable?), then once more with ``save_state``
+   after frame 12 and ``load_state`` into a fresh System: the resumed
+   run's files must equal the uninterrupted run's, bit for bit where the
+   card repeated itself, else within the gap between its two runs;
+9. ``stereo_depth_ncc`` at full width on the card against the CPU (no
+   kernel): ``ok`` equal, depth within 1e-4 relative;
+10. print a ``timing`` line, one ``{"kernels": [...]}`` line, then the last
    line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  A copy of the numbers goes
@@ -38,9 +54,11 @@ to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -50,18 +68,26 @@ import numpy as np
 import torch
 
 from defslam_tpu_torch.config import Config
-from defslam_tpu_torch.io.synthetic import make_sequence
+from defslam_tpu_torch.io.synthetic import _gaussian_blur, make_sequence
 from defslam_tpu_torch.frontend import extract_features
+from defslam_tpu_torch.groundtruth import gt as gtmod
 from defslam_tpu_torch.mapping import mapper
 from defslam_tpu_torch.ops import cuda_build, hamming, matching, windowed_match
 from defslam_tpu_torch.system import System, TrackingState
-from defslam_tpu_torch.tracking import tracker
+from defslam_tpu_torch.tracking import pose_opt, tracker
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 INT8_TENSOR_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate (no 1-bit rate is published)
 N_FRAMES = 12  # tracking slice; the mapping slice runs all 2 * N_FRAMES
 HAMMING_SHAPES = [(2048, 1536), (200, 333), (256, 128), (1, 1),
                   (2049, 1537), (17, 9), (5, 4), (64, 1535)]
+RELOC_SHAPE = (1536, 24 * 1536)  # relocalization: the frame against all 24 keyframe slots
+BENCH_MOTION = dict(height=480, width=640, max_amp=0.08, camera_motion=0.35, rotation_deg=20,
+                    deform_modes=3, brightness_drift=0.1)
+OCCLUSION = (13, 14)
+CHECKPOINT_AFTER = 12  # the split run saves after this frame
+RESULT_FILES = ("Matches.txt", "StatusTracking.txt", "MapPointUsage.txt", "Trajectory.txt",
+                "ErrorGTs0.txt", "ScaleVariation.txt")
 
 
 def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
@@ -237,6 +263,37 @@ def check_hamming(dev, rates: dict) -> dict:
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "popc_floor_ms": 8 * n * m / rates["popc_per_s"] * 1e3,
     }
+
+
+def hamming_at_relocalization(dev) -> dict:
+    """B1 at relocalization's shape, (1536, 8) x (36864, 8): exact against
+    the plain version; ``device_ms`` (graph of 20 launches; the 226 MB
+    output cannot stay in the L2), ``host_us``, the plain and library
+    times, and the bound (bytes: each input read once, the output written
+    once; operations: the 256-bit product of every pair at the int8
+    tensor rate)."""
+    rng = np.random.default_rng(24)
+    n, m = RELOC_SHAPE
+    a, b = _words(rng, (n, 8), dev), _words(rng, (m, 8), dev)
+    out = torch.empty((n, m), dtype=torch.int32, device=dev)
+    device_ms = cuda_graph_ms(lambda: hamming.hamming_matrix(a, b, out=out))
+    ref = hamming.hamming_matrix_plain(a, b)
+    if not torch.equal(out, ref):
+        raise SystemExit("hamming_matrix differs from its plain version at the relocalization shape")
+    err = int((out - ref).abs().max())
+    del ref
+    plain_ms = cuda_ms(lambda: hamming.hamming_matrix_plain(a, b), reps=3, warmup=1)
+    ua, ub = unpack_bits(a), unpack_bits(b)
+    library_ms = cuda_ms(lambda: torch.cdist(ua, ub, p=0), reps=5, warmup=1)
+    t_bytes = 4 * (8 * n + 8 * m + n * m) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * 256 * n * m / INT8_TENSOR_OPS_PER_S * 1e3
+    row = {"shape": [n, m], "max_abs_err": err, "device_ms": device_ms,
+           "kernel_ms": cuda_ms(lambda: hamming.hamming_matrix(a, b), reps=10),
+           "host_us": host_us(lambda: hamming.hamming_matrix(a, b, out=out)),
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    print("hamming_matrix at the relocalization shape", json.dumps(row), flush=True)
+    return row
 
 
 def _match_inputs(rng, b, n, m, dev, lo=(-1.0, -1.0), hi=(1.0, 1.0), p_valid=0.8):
@@ -648,6 +705,283 @@ def keyframe_card_vs_cpu(frames, cfg: Config, dev, tol: float = 5e-3) -> dict:
     return row
 
 
+class RelocProbe:
+    """While active, wraps ``pose_opt.relocalize`` (which ``System`` calls
+    through the module): per call the outcome, the B1 launches inside it
+    and its time between CUDA events (host clock on the CPU).  Reading the
+    outcome is a host read the System makes right after anyway."""
+
+    def __init__(self):
+        self.calls: list[dict] = []
+
+    def __enter__(self):
+        self._real = pose_opt.relocalize
+
+        def probe(feats, kfs, points, K, cfg):
+            cuda = feats.xy.is_cuda
+            before = cuda_build.LAUNCHES["hamming_matrix"]
+            if cuda:
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+            t0 = time.perf_counter()
+            ok, T, n = self._real(feats, kfs, points, K, cfg)
+            if cuda:
+                b.record()
+                b.synchronize()
+            self.calls.append(dict(
+                ok=bool(ok), n_inliers=int(n),
+                b1_launches=cuda_build.LAUNCHES["hamming_matrix"] - before,
+                ms=a.elapsed_time(b) if cuda else (time.perf_counter() - t0) * 1e3))
+            return ok, T, n
+
+        pose_opt.relocalize = probe
+        return self
+
+    def __exit__(self, *exc):
+        pose_opt.relocalize = self._real
+
+
+def run_frames(sys_: System, frames, depths=None, first: int = 0, localize_after=None,
+               probe: RelocProbe | None = None, timed: bool = False):
+    """Track ``frames`` (through ``track_monocular_ct`` where ``depths`` are
+    given), timestamps from ``first``.  Returns per-frame seconds and, per
+    frame, the relocalization calls it made."""
+    frame_s, relocs = [], []
+    for i, frame in enumerate(frames):
+        t = first + i
+        n0 = len(probe.calls) if probe else 0
+        t0 = time.perf_counter()
+        if depths is None:
+            sys_.track_monocular(frame, timestamp=float(t))
+        else:
+            sys_.track_monocular_ct(frame, depths[i], timestamp=float(t))
+        if timed:
+            torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0)
+        relocs.append([dict(frame=t, **c) for c in probe.calls[n0:]] if probe else [])
+        if localize_after is not None and t == localize_after:
+            sys_.activate_localization_mode()
+    return frame_s, relocs
+
+
+def _close(a: int, b: int) -> bool:
+    """Inlier counts within 2% (or 1)."""
+    return abs(a - b) <= max(1, 0.02 * b)
+
+
+def compare_rows(gpu: System, cpu: System, relocs_g, relocs_c, upto: int | None = None):
+    """Per frame through ``upto``: tracking state, keyframe and template
+    flags equal, and the frame's relocalization calls alike (ok equal,
+    inliers within 2% or 1).  The frames' own inlier counts are reported
+    (``inlier_gap``, relative), not held: after a relocalization the SfT's
+    sensitivity (the 1e-7 probe of the tracking slice) moves them by a few
+    percent on either device."""
+    n = len(cpu._metrics) if upto is None else upto + 1
+    rows = []
+    for i in range(n):
+        mg, mc = gpu._metrics[i], cpu._metrics[i]
+        rg = [(c["ok"], c["n_inliers"]) for c in relocs_g[i]]
+        rc = [(c["ok"], c["n_inliers"]) for c in relocs_c[i]]
+        ok_reloc = len(rg) == len(rc) and all(a[0] == b[0] and _close(a[1], b[1])
+                                              for a, b in zip(rg, rc))
+        ok = all(mg[k] == mc[k] for k in ("state", "keyframe", "template")) and ok_reloc
+        row = dict(frame=i, state=[mg["state"], mc["state"]], inliers=[mg["inliers"], mc["inliers"]],
+                   matches=[mg["matches"], mc["matches"]], reloc=[rg, rc],
+                   inlier_gap=abs(mg["inliers"] - mc["inliers"]) / max(1, mc["inliers"]),
+                   ok=bool(ok))
+        print("frame", json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def relocalization_slice(cfg: Config, dev) -> dict:
+    """The 12-frame render of the bench motion, localization mode after
+    frame 0, on the card (counts cleared just before, read just after) and
+    on the CPU.  Fails unless every frame tracks, a relocalization succeeds,
+    each relocalization launched B1 once, and the card's run equals the
+    CPU's in states and relocalization outcomes."""
+    seq = make_sequence(n_frames=N_FRAMES, **BENCH_MOTION)
+    gpu = System(cfg, device=dev)
+    cuda_build.LAUNCHES.clear()
+    with RelocProbe() as probe:
+        frame_s, relocs = run_frames(gpu, seq.frames, localize_after=0, probe=probe, timed=True)
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
+    states = [m["state"] for m in gpu._metrics]
+    print("relocalization states", states, "relocalize", json.dumps(probe.calls),
+          "launches", launches, flush=True)
+    if any(st != TrackingState.OK.name for st in states):
+        raise SystemExit(f"relocalization slice: not every frame tracked: {states}")
+    if not any(c["ok"] for c in probe.calls):
+        raise SystemExit("relocalization slice: no relocalization succeeded")
+    if any(c["b1_launches"] != 1 for c in probe.calls):
+        raise SystemExit("relocalization slice: a relocalize call did not launch B1 exactly once")
+    # the steady-state time of one relocalization at full width (24 slots)
+    feats = extract_features(torch.as_tensor(seq.frames[1], device=dev), cfg)
+    reloc_ms = cuda_ms(lambda: pose_opt.relocalize(feats, gpu.kfs, gpu.points, gpu.K, cfg),
+                       reps=5, warmup=1)
+    cpu = System(cfg, device="cpu")
+    with RelocProbe() as probe_c:
+        _, relocs_c = run_frames(cpu, seq.frames, localize_after=0, probe=probe_c)
+    rows = compare_rows(gpu, cpu, relocs, relocs_c)
+    if not all(r["ok"] for r in rows):
+        raise SystemExit("relocalization slice: the card's run disagrees with the CPU run")
+    reloc_frames = [i for i, r in enumerate(relocs) if any(c["ok"] for c in r)]
+    return {"launches": launches, "calls": probe.calls, "rows": rows,
+            "relocalize_ms": reloc_ms,
+            "relocalize_call_ms": [c["ms"] for c in probe.calls],
+            "relocalized_frame_ms": [frame_s[i] * 1e3 for i in reloc_frames],
+            "frame_p50_ms": statistics.median(frame_s[1:]) * 1e3, "gpu": gpu}
+
+
+def _tokens(path: str) -> list[list[str]]:
+    with open(path) as f:
+        return [r.split() for r in f.read().splitlines()]
+
+
+def files_gap(dir_a: str, dir_b: str) -> dict:
+    """Per result file: rows equal in number, the largest absolute gap of
+    the numeric columns and the count of differing words (states)."""
+    out = {}
+    for name in RESULT_FILES:
+        a, b = _tokens(os.path.join(dir_a, name)), _tokens(os.path.join(dir_b, name))
+        gap, words = 0.0, 0
+        for ra, rb in zip(a, b):
+            for x, y in zip(ra, rb):
+                try:
+                    gap = max(gap, abs(float(x) - float(y)))
+                except ValueError:
+                    words += x != y
+        out[name] = {"rows": [len(a), len(b)], "gap": gap, "words": words,
+                     "equal": open(os.path.join(dir_a, name)).read()
+                     == open(os.path.join(dir_b, name)).read()}
+    return out
+
+
+def occlusion_run(cfg: Config, seq, dev, outdir: str, save_after: int | None = None,
+                  probe: RelocProbe | None = None):
+    """The occlusion render on the card through ``track_monocular_ct`` with
+    the metrics files on, written to ``outdir``.  With ``save_after``: ``save_state``
+    after that frame, then a fresh System on ``dev`` loads the checkpoint
+    and runs the rest.  Returns (system, frame seconds, relocalization
+    calls per frame, save and load ms)."""
+    run_cfg = dataclasses.replace(cfg, save_results=True, output_dir=outdir)
+    n = len(seq.frames)
+    cut = n if save_after is None else save_after + 1
+    s = System(run_cfg, device=dev)
+    frame_s, relocs = run_frames(s, seq.frames[:cut], seq.depths[:cut], probe=probe, timed=True)
+    io_ms = {}
+    if save_after is not None:
+        ckpt = os.path.join(outdir, "checkpoint.npz")
+        t0 = time.perf_counter()
+        s.save_state(ckpt)
+        io_ms["save_state_ms"] = (time.perf_counter() - t0) * 1e3
+        s = System(run_cfg, device=dev)
+        t0 = time.perf_counter()
+        s.load_state(ckpt)
+        torch.cuda.synchronize()
+        io_ms["load_state_ms"] = (time.perf_counter() - t0) * 1e3
+        more_s, more = run_frames(s, seq.frames[cut:], seq.depths[cut:], first=cut, probe=probe,
+                                  timed=True)
+        frame_s, relocs = frame_s + more_s, relocs + more
+    s.write_metrics()
+    return s, frame_s, relocs, io_ms
+
+
+def occlusion_phase(cfg: Config, dev) -> dict:
+    """Phase 8 (see the module's docstring)."""
+    seq = make_sequence(n_frames=2 * N_FRAMES, occlusion=OCCLUSION, **BENCH_MOTION)
+    root = os.path.join("chiprun_out", "occlusion")
+    shutil.rmtree(root, ignore_errors=True)
+    dirs = {k: os.path.join(root, k) for k in ("full", "repeat", "resumed")}
+    cuda_build.LAUNCHES.clear()
+    with RelocProbe() as probe:
+        gpu, frame_s, relocs, _ = occlusion_run(cfg, seq, dev, dirs["full"], probe=probe)
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
+    states = [m["state"] for m in gpu._metrics]
+    print("occlusion states", states, "relocalize", json.dumps(relocs[OCCLUSION[0]:]),
+          "launches", launches, flush=True)
+    after = OCCLUSION[1] + 1
+    if states[OCCLUSION[0]:after] != ["LOST"] * (after - OCCLUSION[0]):
+        raise SystemExit(f"occlusion run: frames {OCCLUSION} are not LOST: {states}")
+    if states[after] != "OK" or not any(c["ok"] for c in relocs[after]):
+        raise SystemExit(f"occlusion run: frame {after} was not recovered by relocalization")
+    reinit = [m["frame"] for m in gpu._metrics[1:] if m["state"] == "OK" and m["matches"] == 0]
+    if reinit or int(gpu.kfs.valid.sum()) < 2:
+        raise SystemExit(f"occlusion run: the map was re-initialized (frames {reinit})")
+    iso = [f for f in os.listdir(dirs["full"]) if f.startswith("ErrorAngIso")]
+    missing = [f for f in ("ErrorGTs0.txt", "ScaleVariation.txt") if
+               not os.path.exists(os.path.join(dirs["full"], f))]
+    if missing or not iso:
+        raise SystemExit(f"occlusion run: GT files missing ({missing}, ErrorAngIso: {iso})")
+    gt_rows = len(gpu._gt_eval.rows)
+
+    # repeatability of the card, then the resumed run
+    occlusion_run(cfg, seq, dev, dirs["repeat"])
+    resumed, _, _, io_ms = occlusion_run(cfg, seq, dev, dirs["resumed"],
+                                         save_after=CHECKPOINT_AFTER)
+    repeat = files_gap(dirs["full"], dirs["repeat"])
+    resume = files_gap(dirs["full"], dirs["resumed"])
+    repeatable = all(v["equal"] for v in repeat.values())
+    print("occlusion repeat", json.dumps(repeat), "resume", json.dumps(resume), flush=True)
+    for name in RESULT_FILES:
+        r, q = resume[name], repeat[name]
+        ok = r["equal"] if repeatable else (
+            r["rows"][0] == r["rows"][1] and r["gap"] <= 3 * q["gap"] and r["words"] <= q["words"])
+        if not ok:
+            raise SystemExit(f"resumed run: {name} differs from the uninterrupted run "
+                             f"(repeatable card: {repeatable}): {r} against {q}")
+
+    # the CPU's run through frame OCCLUSION[1] + 2
+    upto = after + 1
+    cpu = System(cfg, device="cpu")
+    with RelocProbe() as probe_c:
+        _, relocs_c = run_frames(cpu, seq.frames[:upto + 1], probe=probe_c)
+    rows = compare_rows(gpu, cpu, relocs, relocs_c, upto=upto)
+    if not all(r["ok"] for r in rows):
+        raise SystemExit("occlusion run: the card's run disagrees with the CPU run")
+
+    # one GT evaluation at full width (a fresh evaluator: the run's rows stay)
+    ev = gtmod.GroundTruthEvaluator(cfg)
+    depth = seq.depths[-1]
+    gt_ms = cuda_ms(lambda: ev.evaluate_depth(gpu, depth, 0.0), reps=5, warmup=1)
+    return {"launches": launches, "states": states, "relocs": relocs[OCCLUSION[0]:after + 1],
+            "repeatable": repeatable, "repeat": repeat, "resume": resume, "rows": rows,
+            "gt_rows": gt_rows, "angle_files": sorted(iso),
+            "relocalized_frame_ms": frame_s[after] * 1e3,
+            "lost_frame_ms": [frame_s[i] * 1e3 for i in range(OCCLUSION[0], after)],
+            "gt_eval_ms": gt_ms, **io_ms}
+
+
+def stereo_check(cfg: Config, seq, dev, tol: float = 1e-4) -> dict:
+    """``stereo_depth_ncc`` at full width, the card against the CPU: a
+    frame of the render blurred, the right image that frame shifted 9 px
+    (the depth planted is 54 / 9), 4096 points (the map's capacity)."""
+    rng = np.random.default_rng(9)
+    img = _gaussian_blur(np.asarray(seq.frames[0], np.float32), 1.5)
+    img_r = np.roll(img, -9, axis=1)
+    h, w = img.shape
+    n = cfg.capacity.max_map_points
+    uv = np.stack([rng.uniform(0, w - 1, n), rng.uniform(0, h - 1, n)], 1).astype(np.float32)
+    mask = rng.uniform(size=n) < 0.9
+    out = {}
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        args = [torch.as_tensor(x, device=device) for x in (img, img_r, uv, mask)]
+        out[name] = gtmod.stereo_depth_ncc(*args, 54.0, cfg)
+    args = [torch.as_tensor(x, device=dev) for x in (img, img_r, uv, mask)]
+    ms = cuda_ms(lambda: gtmod.stereo_depth_ncc(*args, 54.0, cfg), reps=5)
+    (dg, okg), (dc, okc) = out["card"], out["cpu"]
+    ok_equal = torch.equal(okg.cpu(), okc)
+    rel = float(((dg.cpu() - dc).abs() / dc.abs().clamp(min=1e-6)).max())
+    row = {"n": n, "ok_equal": ok_equal, "n_ok": int(okc.sum()), "depth_rel_gap": rel, "ms": ms,
+           "median_depth_ok": float(dc[okc].median())}
+    print("stereo_card_vs_cpu", json.dumps(row), flush=True)
+    if not ok_equal or rel > tol:
+        raise SystemExit(f"stereo_depth_ncc: the card disagrees with the CPU: {row}")
+    return row
+
+
 def main(kernels_only: bool = False) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -661,6 +995,15 @@ def main(kernels_only: bool = False) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
+    phase_s: dict[str, float] = {}  # wall seconds of each phase, in order
+    t_last = t0
+
+    def phase_done(name: str) -> None:
+        nonlocal t_last
+        now = time.perf_counter()
+        phase_s[name] = now - t_last
+        t_last = now
+
     report = cuda_build.build()
     build_s = time.perf_counter() - t0
     for name, r in report.items():
@@ -669,19 +1012,20 @@ def main(kernels_only: bool = False) -> int:
 
     # the JAX package's full-size bench regime (bench.py: 24 frames of
     # handheld 6-DoF motion).  The tracking slice tracks its first 12
-    # frames; a 12-frame render of the same motion moves twice as far per
-    # frame, and frame 1 then gets 24 matches and 2 inliers in both
-    # packages, which only relocalization (a later slice) recovers.  The
-    # mapping slice runs all 24.
-    seq = make_sequence(n_frames=2 * N_FRAMES, height=480, width=640, max_amp=0.08,
-                        camera_motion=0.35, rotation_deg=20, deform_modes=3,
-                        brightness_drift=0.1)
+    # frames; the mapping slice runs all 24.  The relocalization slice runs
+    # a 12-frame render of the same motion, which moves twice as far per
+    # frame: frame 1 then gets 24 matches and 2 inliers in both packages,
+    # and only relocalization recovers it.
+    seq = make_sequence(n_frames=2 * N_FRAMES, **BENCH_MOTION)
     cfg = Config(camera=seq.camera)
 
     rates = card_rates()
     print("card_rates", json.dumps(rates), flush=True)
+    phase_done("build")
     kern_h = check_hamming(dev, rates)
+    kern_h["relocalization_shape"] = hamming_at_relocalization(dev)
     kern_w = check_windowed_match(cfg, dev, rates)
+    phase_done("kernels")
     if kernels_only:
         print(smi, flush=True)
         print(json.dumps({"kernels": [kern_h, kern_w]}), flush=True)
@@ -712,13 +1056,16 @@ def main(kernels_only: bool = False) -> int:
         **stage_times(gpu, frames[-1]),
     }
 
+    phase_done("tracking_slice")
     # ---- one keyframe step, the card against the CPU (it also warms the
     # mapping chain's libraries outside the timed and counted run)
     torch.set_num_threads(max(1, os.cpu_count() or 1))
     kf_row = keyframe_card_vs_cpu(seq.frames, cfg, dev)
 
+    phase_done("keyframe_card_vs_cpu")
     # ---- mapping slice
     gpu_map, map_frame_s, launches_m, steps = mapping_slice(seq.frames, cfg, dev)
+    phase_done("mapping_slice")
     plain_s = [map_frame_s[m["frame"]] for m in gpu_map._metrics[1:] if not m["keyframe"]]
     kf_s = [map_frame_s[m["frame"]] for m in gpu_map._metrics[1:] if m["keyframe"]]
     timing.update({
@@ -728,14 +1075,35 @@ def main(kernels_only: bool = False) -> int:
         "mapping_frame_p50_ms": statistics.median(plain_s) * 1e3,
         "mapping_keyframe_frame_ms": [x * 1e3 for x in kf_s],
     })
+
+    # ---- relocalization slice, occlusion run with GT and checkpoint, stereo GT
+    reloc = relocalization_slice(cfg, dev)
+    phase_done("relocalization_slice")
+    occl = occlusion_phase(cfg, dev)
+    phase_done("occlusion_gt_checkpoint")
+    stereo = stereo_check(cfg, seq, dev)
+    phase_done("stereo_gt")
+    timing.update({
+        "relocalize_ms": reloc["relocalize_ms"],
+        "relocalize_call_ms": reloc["relocalize_call_ms"],
+        "relocalized_frame_ms": reloc["relocalized_frame_ms"] + [occl["relocalized_frame_ms"]],
+        "lost_frame_ms": occl["lost_frame_ms"],
+        "relocalization_frame_p50_ms": reloc["frame_p50_ms"],
+        "gt_eval_ms": occl["gt_eval_ms"],
+        "save_state_ms": occl["save_state_ms"],
+        "load_state_ms": occl["load_state_ms"],
+        "stereo_ncc_ms": stereo["ms"],
+    })
     print("timing", json.dumps(timing), flush=True)
 
-    kern_h["launches_by_path"] = {"tracking": launches_t.get("hamming_matrix", 0),
-                                  "mapping": launches_m.get("hamming_matrix", 0)}
-    kern_w["launches_by_path"] = {"tracking": launches_t.get("windowed_match", 0),
-                                  "mapping": launches_m.get("windowed_match", 0)}
-    for k in (kern_h, kern_w):
+    paths = {"tracking": launches_t, "mapping": launches_m,
+             "relocalization": reloc["launches"], "occlusion_gt": occl["launches"]}
+    for k, name in ((kern_h, "hamming_matrix"), (kern_w, "windowed_match")):
+        k["launches_by_path"] = {p: counts.get(name, 0) for p, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
+    kern_h["launches_inside_relocalize"] = sum(
+        c["b1_launches"] for c in reloc["calls"]) + sum(
+        c["b1_launches"] for r in occl["relocs"] for c in r)
 
     # ---- the card's runs against the CPU's
     cpu, _ = run_slice(frames, cfg, "cpu")
@@ -747,6 +1115,8 @@ def main(kernels_only: bool = False) -> int:
     map_rows = compare_runs(gpu_map, cpu_map, None)
     if not all(r["ok"] for r in map_rows):
         raise SystemExit("mapping slice: the card's run disagrees with the CPU run")
+    phase_done("tracking_and_mapping_on_cpu")
+    print("phase_s", json.dumps(phase_s), flush=True)
 
     for run in (gpu, gpu_map):
         pose = run.trajectory[-1][1]
@@ -754,9 +1124,11 @@ def main(kernels_only: bool = False) -> int:
             raise SystemExit("final pose is not a finite 4x4 matrix")
 
     kernels = [kern_h, kern_w]
+    reloc.pop("gpu")
     out = {"nvidia_smi": smi, "build_s": build_s, "kernels": kernels, "timing": timing,
            "frames": rows, "mapping_frames": map_rows, "mapping_diags": gpu_map.map_diags,
-           "keyframe_card_vs_cpu": kf_row}
+           "keyframe_card_vs_cpu": kf_row, "relocalization": reloc, "occlusion": occl,
+           "stereo_card_vs_cpu": stereo, "phase_s": phase_s}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(out, f, indent=1)

@@ -351,6 +351,45 @@ class Config:
         return dataclasses.asdict(self)
 
 
+def replace_path(cfg: Config, path: tuple, value) -> Config:
+    """A new frozen Config with the field at ``path`` replaced; the value is
+    coerced to the current field's type (a YAML float must not turn an int
+    field into a float).  Raises KeyError on an unknown path, so live-tuning
+    typos are loud."""
+    node = cfg
+    for p in path[:-1]:
+        if not hasattr(node, p):
+            raise KeyError(f"no config section {'.'.join(path)}")
+        node = getattr(node, p)
+    leaf = path[-1]
+    if not hasattr(node, leaf):
+        raise KeyError(f"no config field {'.'.join(path)}")
+    cur = getattr(node, leaf)
+    if isinstance(cur, bool):
+        value = bool(value)
+    elif isinstance(cur, int):
+        value = int(value)
+    elif isinstance(cur, float):
+        value = float(value)
+    new = dataclasses.replace(node, **{leaf: value})
+    # rebuild the ancestors bottom-up
+    for i in range(len(path) - 2, -1, -1):
+        parent = cfg
+        for p in path[:i]:
+            parent = getattr(parent, p)
+        new = dataclasses.replace(parent, **{path[i]: new})
+    return new
+
+
+def reference_key_path(key: str) -> tuple:
+    """A parameter name as a path: a reference YAML key
+    ('Regularizer.laplacian', scripts/stereo0_template.yaml) or a dotted
+    path into this schema ('sft.lm_iterations')."""
+    if key in _REF_KEYMAP:
+        return _REF_KEYMAP[key]
+    return tuple(key.split("."))
+
+
 def load_raw_yaml(path: str) -> dict:
     """Parse a settings file into a flat dict, tolerating the reference's
     cv::FileStorage quirks: the '%YAML:1.0' directive (invalid for PyYAML),

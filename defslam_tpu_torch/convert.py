@@ -6,7 +6,8 @@ step, a frame's features and matches and the mapping chain's intermediate
 tuples.  These functions take plain numpy arrays (``np.asarray`` of the JAX
 package's arrays) and build the port's structures, so a test can start both
 packages from the same state.  uint32 descriptor words are reinterpreted as int32 with the same
-bits; index fields become int64.
+bits; index fields become int64.  :func:`numpy_from_tensor` is the reverse
+rule, so the port writes the JAX package's dtypes (its checkpoints).
 """
 
 from __future__ import annotations
@@ -79,6 +80,17 @@ def tensor_from_numpy(name: str, a, device) -> torch.Tensor:
     elif a.dtype.kind in "iu" and name in _INDEX_FIELDS:
         a = a.astype(np.int64)
     return torch.as_tensor(np.array(a, copy=True, order="C"), device=device)
+
+
+def numpy_from_tensor(name: str, t: torch.Tensor) -> np.ndarray:
+    """A tensor as the JAX package holds the same field: descriptor words as
+    uint32 (same bits), index fields as int32; other dtypes unchanged."""
+    a = t.detach().cpu().numpy()
+    if name == "desc" and a.dtype == np.int32:
+        return a.view(np.uint32)
+    if name in _INDEX_FIELDS and a.dtype == np.int64:
+        return a.astype(np.int32)
+    return a
 
 
 def namedtuple_from_numpy(cls, d: dict, device, prefix: str = ""):

@@ -1,7 +1,7 @@
 """Pinhole camera model on torch tensors.
 
 Port of ``defslam_tpu/geometry/camera.py`` (the subset the tracking path
-uses).  Projection is pure pinhole; lens distortion applies to keypoint
+and the GT harness use).  Projection is pure pinhole; lens distortion applies to keypoint
 coordinates only (:func:`undistort_points`, wired into the frontend).
 """
 
@@ -17,6 +17,13 @@ def project(K: torch.Tensor, pts_cam: torch.Tensor) -> torch.Tensor:
     u = K[0, 0] * pts_cam[..., 0] / zsafe + K[0, 2]
     v = K[1, 1] * pts_cam[..., 1] / zsafe + K[1, 2]
     return torch.stack([u, v], dim=-1)
+
+
+def backproject(K: torch.Tensor, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """Pixels (..., 2) + depth (...) -> camera-frame points (..., 3)."""
+    x = (uv[..., 0] - K[0, 2]) / K[0, 0]
+    y = (uv[..., 1] - K[1, 2]) / K[1, 1]
+    return torch.stack([x * depth, y * depth, depth], dim=-1)
 
 
 def to_retina(K: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:

@@ -63,17 +63,23 @@ def best_match(
     """Row-wise best match with the Lowe ratio and an optional mutual-best
     check.  Equal to the top-2 of ``jax.lax.top_k(-dist, 2)``: the best is
     the first minimum (``argmin``) and the second is the minimum of the row
-    with that one entry removed."""
-    j = torch.argmin(dist, dim=1)
-    best = dist.gather(1, j[:, None])[:, 0]
-    rest = dist.scatter(1, j[:, None], torch.iinfo(dist.dtype).max)
-    second = rest.min(dim=1).values
+    with that one entry removed.
+
+    ``dist`` is (N, M), or (N, B, M): B independent matrices that share
+    their N rows (one (N, B*M) distance matrix viewed so), matched each on
+    its own; the results are then (N, B)."""
+    j = torch.argmin(dist, dim=-1)
+    best = dist.gather(-1, j[..., None])[..., 0]
+    rest = dist.scatter(-1, j[..., None], torch.iinfo(dist.dtype).max)
+    second = rest.min(dim=-1).values
     ok = best <= max_dist
     if nn_ratio < 1.0:
         ok = ok & (best.float() <= nn_ratio * second.float())
     if mutual:
-        back = torch.argmin(dist, dim=0)  # best A for each B
-        ok = ok & (back[j] == torch.arange(dist.shape[0], device=dist.device))
+        back = torch.argmin(dist, dim=0)  # best A for each B: (..., M)
+        back_j = back.expand(dist.shape).gather(-1, j[..., None])[..., 0]
+        rows = torch.arange(dist.shape[0], device=dist.device)
+        ok = ok & (back_j == rows.reshape((-1,) + (1,) * (dist.ndim - 2)))
     return Matches(idx=torch.where(ok, j, torch.full_like(j, -1)), dist=best)
 
 

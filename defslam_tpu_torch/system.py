@@ -1,17 +1,26 @@
-"""defslam_tpu_torch.System — the port's public API (tracking and mapping).
+"""defslam_tpu_torch.System — the port's public API.
 
 Port of ``defslam_tpu/system.py``: plane-at-z=1 initialization
 (DefTracking.cc:583-664), then per frame the synchronous track / validate /
-commit protocol with the wide-window retry and the LOST state, and every
-``tracking.keyframe_period`` frames a keyframe with the whole NRSfM mapping
-chain (``mapping.mapper.keyframe_step``: warps, densification, normals,
-shape-from-normals, Sim(3) registration, re-template, re-anchor).
-Relocalization is a later slice of the port and raises
-``NotImplementedError``.  The port always runs the synchronous protocol and
-the fused keyframe step: ``tracking.pipelined``, ``pipeline_depth`` and
-``tracking.split_keyframe_dispatch`` are read as off, and the keyframe
-step's diagnostics are read back right after it instead of a frame later,
-which changes no result.
+commit protocol with the wide-window retry, relocalization against the
+stored keyframes (``tracking.pose_opt.relocalize``) and the LOST state, and
+every ``tracking.keyframe_period`` frames a keyframe with the whole NRSfM
+mapping chain (``mapping.mapper.keyframe_step``: warps, densification,
+normals, shape-from-normals, Sim(3) registration, re-template, re-anchor).
+Around it: the ground-truth entry points (``track_monocular_ct`` /
+``track_monocular_gt``, ``groundtruth.gt``), the reference's text streams
+(:meth:`System.write_metrics`), checkpoints in the JAX package's npz format
+(:meth:`System.save_state` / :meth:`System.load_state`: either package
+loads the other's), live tuning and restart.
+
+The port always runs the synchronous protocol and the fused keyframe step:
+``tracking.pipelined``, ``pipeline_depth`` and
+``tracking.split_keyframe_dispatch`` are read as off (``flush`` and
+``shutdown`` have nothing to wait for), and the keyframe step's
+diagnostics are read back right after it instead of a frame later, which
+changes no result.  The JAX package's synchronous path re-anchors a second
+time after a template swap when the GT harness is on; its default
+(pipelined) path does not, and neither does the port.
 
 Everything runs on ``System.device``: CUDA unless the caller passes
 ``device="cpu"``.  Importing this module turns TF32 off for CUDA matmuls
@@ -23,23 +32,27 @@ that cuDNN would otherwise run in TF32.
 from __future__ import annotations
 
 import enum
+import json
+import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from defslam_tpu_torch import config as cfgmod
 from defslam_tpu_torch.config import Config
+from defslam_tpu_torch.convert import numpy_from_tensor, tensor_from_numpy
 from defslam_tpu_torch.frontend import Features, extract_features
 from defslam_tpu_torch.geometry import camera as cam
 from defslam_tpu_torch.mapping import mapper
 from defslam_tpu_torch.mapstore import state as store
 from defslam_tpu_torch.template import mesh as meshmod
-from defslam_tpu_torch.tracking import tracker
+from defslam_tpu_torch.tracking import pose_opt, tracker
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-RELOCALIZATION_SLICE = "relocalization is slice 3 of the PyTorch port"
+TEMPLATE_HISTORY_CAP = 256  # keyframe-time templates kept for export
 
 
 class TrackingState(enum.Enum):
@@ -80,16 +93,22 @@ class System:
             cfg = Config.from_yaml(cfg)
         self.cfg = cfg or Config()
         self.device = resolve_device(device)
+        self._derive_constants()
+        self._localization_only = False
+        self._metrics: list[dict] = []
+        self._kf_mark = None  # optional stage callback handed to keyframe_step
+        self._gt_eval = None  # the GT harness, created by the first GT frame
+        self.reset()
+
+    def _derive_constants(self):
+        """Camera matrix, retina domain, mesh topology and bending matrices
+        from ``self.cfg``."""
         c = self.cfg
         self.K = torch.as_tensor(c.camera.K, device=self.device)
         self.dom = cam.retina_domain(self.K, c.camera.width, c.camera.height)
         self.topo = meshmod.grid_topology(c.mesh.nodes_u, c.mesh.nodes_v)
         self.bend_warp = mapper.bending_for(self.dom, c.mapping.warp_ctrl_u, c.mapping.warp_ctrl_v)
         self.bend_sfn = mapper.bending_for(self.dom, c.mapping.sfn_ctrl_u, c.mapping.sfn_ctrl_v)
-        self._localization_only = False
-        self._metrics: list[dict] = []
-        self._kf_mark = None  # optional stage callback handed to keyframe_step
-        self.reset()
 
     # ----------------------------------------------------------- lifecycle
 
@@ -112,6 +131,35 @@ class System:
         self.frames_since_kf = 0
         self._lost_count = 0
         self.trajectory: list[tuple[float, np.ndarray]] = []
+        # keyframe-time template states (frame_id, nodes) for the
+        # mesh-history export (viewer.export.export_template_history)
+        self.template_history: list[tuple[int, torch.Tensor]] = []
+
+    def apply_tuning(self, overrides: dict) -> None:
+        """Live parameter overrides (the DefViewer regularizer sliders,
+        DefViewer.cc:53-120, for a headless host).  Keys are reference YAML
+        names ('Regularizer.laplacian') or dotted config paths
+        ('sft.lm_iterations'); values are coerced to the field's type.  The
+        next frame runs with the new Config."""
+        cfg = self.cfg
+        for key, value in overrides.items():
+            cfg = cfgmod.replace_path(cfg, cfgmod.reference_key_path(key), value)
+        self.cfg = cfg
+        self._derive_constants()
+
+    def restart(self):
+        """System::Restart (System.cc:254-266): put the template back to its
+        rest shape, keep the map."""
+        if self.template is not None:
+            self.template = self.template._replace(nodes=self.template.nodes_rest)
+            self.points = tracker.reposition_points(self.points, self.template.nodes, self.cfg)
+
+    def flush(self):
+        """Nothing is in flight: the port runs the synchronous protocol."""
+
+    def shutdown(self):
+        """No threads to join and nothing in flight."""
+        self.flush()
 
     def activate_localization_mode(self):
         self._localization_only = True
@@ -148,6 +196,31 @@ class System:
             return result.pose
         self._lost_count += 1
         return None
+
+    def track_monocular_gt(self, img_left, img_right, timestamp: float = 0.0,
+                           baseline: float = 0.1):
+        """Track on the left image and, with ``save_results``, evaluate
+        against stereo-NCC ground truth (System::TrackMonocularGT,
+        System.cc:268-341)."""
+        pose = self.track_monocular(img_left, timestamp)
+        if pose is not None and self.cfg.save_results:
+            self._gt_evaluator().evaluate_stereo(self, img_left, img_right, baseline, timestamp)
+        return pose
+
+    def track_monocular_ct(self, img, depth_map, timestamp: float = 0.0):
+        """Track and, with ``save_results``, evaluate against a per-frame GT
+        depth map (System::TrackMonocularCTGT, System.cc:343-416)."""
+        pose = self.track_monocular(img, timestamp)
+        if pose is not None and self.cfg.save_results:
+            self._gt_evaluator().evaluate_depth(self, np.asarray(depth_map), timestamp)
+        return pose
+
+    def _gt_evaluator(self):
+        if self._gt_eval is None:
+            from defslam_tpu_torch.groundtruth.gt import GroundTruthEvaluator
+
+            self._gt_eval = GroundTruthEvaluator(self.cfg)
+        return self._gt_eval
 
     # ------------------------------------------------------ initialization
 
@@ -280,8 +353,12 @@ class System:
 
     def _relocalize(self, img):
         """Relocalization against the stored keyframes before declaring LOST
-        (``tracking/pose_opt.py::relocalize`` in the JAX package)."""
-        raise NotImplementedError(RELOCALIZATION_SLICE)
+        (the reference's DefSLAM mode resets at once, DefTracking.cc:194-207;
+        the JAX package first tries the recovery its ORBSLAM mode uses).
+        Returns (ok, pose or None); one host read."""
+        ok, T, _ = pose_opt.relocalize(
+            extract_features(img, self.cfg), self.kfs, self.points, self.K, self.cfg)
+        return (True, T) if bool(ok) else (False, None)
 
     def _insert_keyframe(self, feats, matches, res) -> None:
         """CreateNewKeyFrame and the mapping step: one fused
@@ -295,11 +372,22 @@ class System:
             self.frame_id, self.cfg, mark=self._kf_mark,
         )
         self.kf_counter += 1
+        self._record_template_history()
         self._finalize_map(diag, len(self._metrics) - 1)
+
+    def _record_template_history(self):
+        """Keep the keyframe-time template for the mesh-history view
+        (DefMapDrawer::MeshDrawershist), at most TEMPLATE_HISTORY_CAP."""
+        if self.template is not None:
+            self.template_history.append((self.frame_id, self.template.nodes.clone()))
+            del self.template_history[:-TEMPLATE_HISTORY_CAP]
 
     def _finalize_map(self, diag: mapper.MappingDiag, row: int):
         """Read the keyframe step's scalars back (one host read), keep the
-        template bookkeeping, and fill the keyframe's metrics row."""
+        template bookkeeping, and fill the keyframe's metrics row.  With the
+        GT harness on, evaluate the keyframe's normal angles whenever the
+        NRSfM chain ran, swap or not (estimateAngleErrorAndScale inside
+        NRSfM, DefLocalMapping.cc:216-221)."""
         vals = torch.stack([v.to(torch.float64) for v in diag]).tolist()
         d = mapper.MappingDiag(*(
             bool(v) if f in ("accepted", "exploring") else
@@ -317,7 +405,79 @@ class System:
             points_culled=d.n_culled,
             reg_scale=d.reg_scale,
         )
+        if (self.cfg.save_results and self._gt_eval is not None
+                and d.n_pairs > 0 and d.n_norm >= self.cfg.mapping.min_normals):
+            self._gt_eval.evaluate_keyframe_angles(self, d.kf_t)
         return d
+
+    # -------------------------------------------------------- persistence
+
+    def save_state(self, path: str):
+        """Checkpoint the whole run in one npz file, in the JAX package's
+        format (keys ``kf_*``, ``pt_*``, ``tmpl_*``, ``pose``, ``prev_pose``,
+        ``meta``, ``metrics_json``, ``traj_*``, ``hist_*``, ``gt_rows``; its
+        dtypes: uint32 descriptor words, int32 index fields), so either
+        package loads the other's checkpoint.  The run history goes with the
+        map: a resumed run continues the metric streams."""
+        arrays = {}
+        parts = [("kf", self.kfs), ("pt", self.points)]
+        if self.template is not None:
+            parts.append(("tmpl", self.template))
+        for prefix, obj in parts:
+            for name, t in obj._asdict().items():
+                arrays[f"{prefix}_{name}"] = numpy_from_tensor(name, t)
+        arrays["pose"] = self.pose.cpu().numpy()
+        arrays["prev_pose"] = self.prev_pose.cpu().numpy()
+        arrays["meta"] = np.asarray(
+            [self.frame_id, self.frames_since_kf, self.template_ref_kf,
+             self.state.value, self.kf_counter, self._lost_count])
+        arrays["metrics_json"] = np.frombuffer(json.dumps(self._metrics).encode(), np.uint8)
+        if self.trajectory:
+            arrays["traj_ts"] = np.asarray([t for t, _ in self.trajectory])
+            arrays["traj_T"] = np.stack([np.asarray(T) for _, T in self.trajectory])
+        if self.template_history:
+            arrays["hist_fid"] = np.asarray([f for f, _ in self.template_history], np.int64)
+            arrays["hist_nodes"] = np.stack([n.cpu().numpy() for _, n in self.template_history])
+        if self._gt_eval is not None and self._gt_eval.rows:
+            arrays["gt_rows"] = np.asarray(self._gt_eval.rows, np.float64)
+        np.savez_compressed(path, **arrays)
+
+    def load_state(self, path: str):
+        """Restore a checkpoint written by :meth:`save_state` of either
+        package, onto this System's device."""
+        dev = self.device
+        with np.load(path) as data:
+            def part(prefix, cls):
+                return cls(**{f: tensor_from_numpy(f, data[f"{prefix}_{f}"], dev)
+                              for f in cls._fields})
+
+            self.kfs = part("kf", store.KeyframeStore)
+            self.points = part("pt", store.PointStore)
+            if "tmpl_nodes" in data:
+                self.template = part("tmpl", meshmod.Template)
+            self.pose = torch.as_tensor(data["pose"], device=dev)
+            self.prev_pose = (torch.as_tensor(data["prev_pose"], device=dev)
+                              if "prev_pose" in data else self.pose)
+            meta = [int(v) for v in data["meta"]]
+            self.frame_id, self.frames_since_kf, self.template_ref_kf = meta[:3]
+            self.state = TrackingState(meta[3])
+            self.kf_counter = meta[4] if len(meta) > 4 else 1
+            self._lost_count = meta[5] if len(meta) > 5 else 0
+            if "metrics_json" in data:
+                self._metrics = json.loads(bytes(data["metrics_json"]).decode())
+            if "traj_ts" in data:
+                self.trajectory = [(float(t), T) for t, T in zip(data["traj_ts"], data["traj_T"])]
+            if "hist_fid" in data:
+                self.template_history = [
+                    (int(f), torch.as_tensor(n, device=dev))
+                    for f, n in zip(data["hist_fid"], data["hist_nodes"])
+                ]
+            if "gt_rows" in data:
+                # rows are (ts, rmse, n, scale): the inlier count goes back to
+                # an int, or ScaleVariation.txt would print "12.0"
+                self._gt_evaluator().rows = [
+                    (float(t), float(r), int(n), float(s)) for t, r, n, s in data["gt_rows"]
+                ]
 
     # ------------------------------------------------------------- metrics
 
@@ -331,3 +491,38 @@ class System:
                 n_local=int(n_local), match_dropped=int(n_dropped),
             )
         )
+
+    def write_metrics(self, outdir: str | None = None):
+        """The reference's tracking text streams (Tracking.cc:150-167), in
+        the JAX package's formats:
+
+        - ``Matches.txt``: "timestamp matches inliers keyframe template
+          state" per frame;
+        - ``StatusTracking.txt``: "timestamp 0|1" (1 = not tracked);
+        - ``MapPointUsage.txt``: "timestamp matches inliers frustum-
+          candidates live-map-points";
+        - ``Trajectory.txt``: "timestamp" and the 16 entries of the pose;
+        - with the GT harness on, ``ErrorGTs0.txt`` and
+          ``ScaleVariation.txt`` (the per-keyframe ``ErrorAngIso*`` /
+          ``ErrorAngSfN*`` files are written as the keyframes come)."""
+        outdir = outdir or self.cfg.output_dir
+        os.makedirs(outdir, exist_ok=True)
+        n_points_valid = int(self.points.valid.sum())
+        with open(os.path.join(outdir, "Matches.txt"), "w") as f:
+            for m in self._metrics:
+                f.write(f"{m['t']:.6f} {m['matches']} {m['inliers']} "
+                        f"{int(m['keyframe'])} {int(m['template'])} {m['state']}\n")
+        with open(os.path.join(outdir, "StatusTracking.txt"), "w") as f:
+            for m in self._metrics:
+                f.write(f"{m['t']:.6f} {int(m['state'] != 'OK')}\n")
+        with open(os.path.join(outdir, "MapPointUsage.txt"), "w") as f:
+            for m in self._metrics:
+                f.write(f"{m['t']:.6f} {m['matches']} {m['inliers']} "
+                        f"{m.get('n_local', 0)} {n_points_valid}\n")
+        with open(os.path.join(outdir, "Trajectory.txt"), "w") as f:
+            for ts, T in self.trajectory:
+                f.write(f"{ts:.6f} " + " ".join(f"{x:.8f}" for x in np.asarray(T).reshape(-1))
+                        + "\n")
+        if self._gt_eval is not None:
+            self._gt_eval.outdir = outdir
+            self._gt_eval.write()

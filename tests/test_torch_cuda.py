@@ -110,3 +110,51 @@ def test_windowed_match_kernel_writes_into_out(cuda_device):
     assert idx.data_ptr() == pre[1].data_ptr() and idx.dtype == torch.int64
     ref = wm.windowed_match_plain(*args, radius, matching.INVALID)
     assert all(torch.equal(o, r) for o, r in zip((best, idx, second), ref))
+
+
+@pytest.mark.cuda
+def test_hamming_kernel_at_the_relocalization_shape(cuda_device):
+    """Relocalization's one launch: the frame's 1536 descriptors against all
+    24 keyframe slots' 1536 each, (1536, 8) x (36864, 8), exact."""
+    rng = np.random.default_rng(24)
+    a = torch.as_tensor(rng.integers(-2**31, 2**31, (1536, 8)).astype(np.int32),
+                        device=cuda_device)
+    b = torch.as_tensor(rng.integers(-2**31, 2**31, (24 * 1536, 8)).astype(np.int32),
+                        device=cuda_device)
+    before = cuda_build.LAUNCHES["hamming_matrix"]
+    out = hamming.hamming_matrix(a, b)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["hamming_matrix"] == before + 1
+    assert torch.equal(out, hamming.hamming_matrix_plain(a, b))
+
+
+@pytest.mark.cuda
+def test_keyframe_votes_launch_the_kernel_once(cuda_device):
+    """``pose_opt.keyframe_votes`` on the card: one B1 launch over every
+    slot, and the votes and matches of the CPU's plain route."""
+    from defslam_tpu_torch.config import CapacityConfig, Config, OrbConfig
+    from defslam_tpu_torch.frontend import Features
+    from defslam_tpu_torch.mapstore import state as store
+    from defslam_tpu_torch.tracking import pose_opt
+
+    cfg = Config(orb=OrbConfig(max_keypoints=256), capacity=CapacityConfig(max_keyframes=6))
+    torch.manual_seed(0)
+    rng = np.random.default_rng(7)
+    kfs = store.empty_keyframes(cfg, "cpu")
+    words = rng.integers(-2**31, 2**31, (6, 256, 8)).astype(np.int32)
+    desc = torch.as_tensor(words)
+    flip = torch.as_tensor(rng.integers(0, 2, (256, 8)).astype(np.int32))
+    kfs = kfs._replace(desc=desc, kp_valid=torch.rand(6, 256) < 0.9,
+                       point_id=torch.arange(6 * 256).reshape(6, 256),
+                       valid=torch.tensor([True, True, True, False, True, True]))
+    feats = Features(xy=torch.zeros(256, 2), response=torch.zeros(256),
+                     level=torch.zeros(256, dtype=torch.int32), angle=torch.zeros(256),
+                     desc=desc[1] ^ flip, valid=torch.rand(256) < 0.9)
+    cpu = pose_opt.keyframe_votes(feats, kfs, cfg)
+    on = lambda nt: type(nt)(*(t.to(cuda_device) for t in nt))  # noqa: E731
+    before = cuda_build.LAUNCHES["hamming_matrix"]
+    card = pose_opt.keyframe_votes(on(feats), on(kfs), cfg)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["hamming_matrix"] == before + 1
+    assert all(torch.equal(c.cpu(), r) for c, r in zip(card, cpu))
+    assert int(cpu[0][1]) > 100 and int(cpu[0].sum()) == int(cpu[0][1])  # only slot 1 matches

@@ -228,12 +228,31 @@ def test_mapping_run_swaps_the_template(mapping_runs):
 
 
 def test_relocalization_branch_is_a_later_slice(seq, cfgs):
+    """The relocalization branch was a later slice of the port and raised;
+    it now tries ``pose_opt.relocalize``, which fails on a featureless
+    frame, and the frame goes LOST with the map kept."""
+    from defslam_tpu_torch.tracking import pose_opt
+
     _, tcfg = cfgs
     s = System(tcfg, device="cpu")
     s.track_monocular(seq.frames[0])
     s.activate_localization_mode()
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        s.track_monocular(np.full_like(seq.frames[1], 128.0))  # featureless
+    outcomes = []
+    real = pose_opt.relocalize
+
+    def counted(*args):
+        out = real(*args)
+        outcomes.append((bool(out[0]), int(out[2])))
+        return out
+
+    pose_opt.relocalize = counted
+    try:
+        pose = s.track_monocular(np.full_like(seq.frames[1], 128.0))  # featureless
+    finally:
+        pose_opt.relocalize = real
+    assert pose is None and s.get_tracking_state() == TrackingState.LOST
+    assert outcomes == [(False, 0)]
+    assert s._metrics[-1]["state"] == "LOST" and int(s.kfs.valid.sum()) == 1
 
 
 def test_lost_then_reinitialize(seq, cfgs, monkeypatch):

@@ -1,7 +1,7 @@
 """Where a tracked frame's and a keyframe step's time goes on the card, for
 the PyTorch port.
 
-    python3 tools_torch_profile.py [--frames 3] [--keyframe]
+    python3 tools_torch_profile.py [--frames 3] [--keyframe | --relocalize]
 
 Tracks the first frames of the same sequence as chip_smoke.py (the JAX
 package's full-size bench render, default Config, localization mode) on
@@ -20,6 +20,13 @@ once under torch.profiler.  Prints the step's wall time, its device busy
 time and share, its kernel launches and its top kernels, and writes them to
 ``chiprun_out/profile_keyframe.json``.  Needs a CUDA card; imports nothing
 of JAX.
+
+With ``--relocalize`` it profiles one ``pose_opt.relocalize`` at full
+width: frame 0 of the 12-frame render of the same motion initializes, and
+frame 1's features are relocalized against the 24 keyframe slots (the
+call the relocalization slice of chip_smoke.py makes).  Prints the call's
+wall time, device busy time and share, launches and top kernels, and
+writes them to ``chiprun_out/profile_relocalize.json``.
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ from defslam_tpu_torch.io.synthetic import make_sequence
 from defslam_tpu_torch.mapping import mapper
 from defslam_tpu_torch.ops import cuda_build
 from defslam_tpu_torch.system import System
-from defslam_tpu_torch.tracking import tracker
+from defslam_tpu_torch.tracking import pose_opt, tracker
 from defslam_tpu_torch.frontend import extract_features
 
 WARM_FRAMES = 8
@@ -98,40 +105,64 @@ def profile_keyframe(seq, cfg: Config, smi: str) -> dict:
             res.inlier, sys_.K, sys_.dom, sys_.bend_warp, sys_.bend_sfn, sys_.template_ref_kf,
             sys_.kf_counter, sys_.frame_id + 1, cfg)
 
-    step()  # warm: library handles, allocator
+    out, kernels = _profiled(step, smi)
+    diag = step()[4]
+    own = [e for e in kernels if "hamming_kernel" in e.key or "windowed_match_kernel" in e.key]
+    return {
+        **out, "accepted": bool(diag.accepted), "n_pairs": int(diag.n_pairs),
+        # the port's hand-written kernels, wherever they rank
+        "own_kernels": [{"name": e.key[:120], "device_ms": _device_us(e) / 1e3,
+                         "calls": int(e.count)} for e in own],
+    }
+
+
+def _profiled(fn, smi: str):
+    """Host-clock wall time of ``fn`` (after a warm call, ending in a
+    synchronize), then one more call under torch.profiler: device busy
+    time and share, launches, top kernels.  Returns (that dict, the
+    profiler's device kernels)."""
+    fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    diag = step()[4]
+    fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        step()
+        fn()
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = _device_kernels(prof)
     busy_us = sum(_device_us(e) for e in kernels)
     top = sorted(kernels, key=_device_us, reverse=True)[:15]
     return {
-        "nvidia_smi": smi,
-        "accepted": bool(diag.accepted), "n_pairs": int(diag.n_pairs),
-        "keyframe_wall_ms": wall_ms,
-        "keyframe_wall_ms_profiled": prof_wall_ms,
+        "nvidia_smi": smi, "wall_ms": wall_ms, "wall_ms_profiled": prof_wall_ms,
         "device_busy_ms": busy_us / 1e3,
         "device_busy_share_profiled": busy_us / 1e3 / prof_wall_ms,
         "device_busy_share_of_unprofiled_wall": busy_us / 1e3 / wall_ms,
         "kernel_launches": sum(int(e.count) for e in kernels),
-        "top_kernels": [
-            {"name": e.key[:120], "device_ms": _device_us(e) / 1e3, "calls": int(e.count)}
-            for e in top
-        ],
-        # the port's hand-written kernels, wherever they rank
-        "own_kernels": [
-            {"name": e.key[:120], "device_ms": _device_us(e) / 1e3, "calls": int(e.count)}
-            for e in kernels if "hamming_kernel" in e.key or "windowed_match_kernel" in e.key
-        ],
-    }
+        "top_kernels": [{"name": e.key[:120], "device_ms": _device_us(e) / 1e3,
+                         "calls": int(e.count)} for e in top],
+    }, kernels
+
+
+def profile_relocalize(smi: str) -> dict:
+    """One relocalization at full width (see the module's docstring)."""
+    seq = make_sequence(n_frames=12, height=480, width=640, max_amp=0.08, camera_motion=0.35,
+                        rotation_deg=20, deform_modes=3, brightness_drift=0.1)
+    cfg = Config(camera=seq.camera)
+    sys_ = System(cfg)
+    sys_.track_monocular(seq.frames[0], timestamp=0.0)
+    feats = extract_features(torch.as_tensor(seq.frames[1], device=sys_.device), cfg)
+
+    def call():
+        return pose_opt.relocalize(feats, sys_.kfs, sys_.points, sys_.K, cfg)
+
+    out, _ = _profiled(call, smi)
+    ok, _, n = call()
+    out.update(ok=bool(ok), n_inliers=int(n))
+    return out
 
 
 def main() -> int:
@@ -139,6 +170,8 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--keyframe", action="store_true",
                     help="profile one keyframe step instead of tracked frames")
+    ap.add_argument("--relocalize", action="store_true",
+                    help="profile one relocalization instead of tracked frames")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("tools_torch_profile: no CUDA device", file=sys.stderr)
@@ -153,6 +186,13 @@ def main() -> int:
                         camera_motion=0.35, rotation_deg=20, deform_modes=3,
                         brightness_drift=0.1)
     cfg = Config(camera=seq.camera)
+    if args.relocalize:
+        out = profile_relocalize(smi)
+        print(json.dumps(out), flush=True)
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "profile_relocalize.json"), "w") as f:
+            json.dump(out, f, indent=1)
+        return 0
     if args.keyframe:
         out = profile_keyframe(seq, cfg, smi)
         print(json.dumps(out), flush=True)
