@@ -45,8 +45,30 @@ Phases, in order; any failure exits non-zero and prints no result line:
    card repeated itself, else within the gap between its two runs;
 9. ``stereo_depth_ncc`` at full width on the card against the CPU (no
    kernel): ``ok`` equal, depth within 1e-4 relative;
-10. print a ``timing`` line, one ``{"kernels": [...]}`` line, then the last
+10. the pipelined slice: the JAX package's bench configuration
+   (``bench.py``: 640x480, 1200 features, 6 levels, 1536 keypoints, 50 LM
+   iterations, 4096 map points, 16 keyframe slots, a keyframe every 10
+   frames, pipeline depth 2) on the 24-frame bench render uploaded as
+   uint8 tensors on the card: 12 warm-up frames, a ``flush``, 12 measured
+   frames, in three modes: synchronous, pipelined with the fused keyframe
+   step, pipelined with the split one (the bench's).  Every frame must
+   track, the split run must swap the template and launch both kernels;
+   in one more split run, untimed, the non-keyframe dispatches must run
+   under ``torch.cuda.set_sync_debug_mode("error")`` and the keyframe
+   dispatches make at most two host waits (the branch reads) besides the
+   Sim(3) alignment's (``torch.linalg.svd`` reads its convergence info on
+   the host, twice a call, two calls, just before the registration's
+   verdict is read);
+   the fused pipelined run must give the synchronous run's metrics rows,
+   its trajectory within 1e-6; the split run's ATE must stay within
+   max(2x, +0.02) of the fused run's.  Then two rollbacks at full width: a blank frame at a keyframe
+   slot must end as the synchronous run, and a blank frame right after a
+   split keyframe must be recovered with the stores consistent;
+11. print a ``timing`` line, one ``{"kernels": [...]}`` line, then the last
    line ``{"ok": true, "device": {...}}``.
+
+Every phase before the pipelined slice runs the synchronous protocol
+(``tracking.pipelined=False``), so its numbers compare with earlier runs.
 
 Imports nothing of JAX or of the JAX package.  A copy of the numbers goes
 to ``chiprun_out/chip_smoke.json``.
@@ -67,7 +89,8 @@ import time
 import numpy as np
 import torch
 
-from defslam_tpu_torch.config import Config
+from defslam_tpu_torch import profiling
+from defslam_tpu_torch.config import CapacityConfig, Config, OrbConfig, SfTConfig, TrackingConfig
 from defslam_tpu_torch.io.synthetic import _gaussian_blur, make_sequence
 from defslam_tpu_torch.frontend import extract_features
 from defslam_tpu_torch.groundtruth import gt as gtmod
@@ -84,6 +107,10 @@ HAMMING_SHAPES = [(2048, 1536), (200, 333), (256, 128), (1, 1),
 RELOC_SHAPE = (1536, 24 * 1536)  # relocalization: the frame against all 24 keyframe slots
 BENCH_MOTION = dict(height=480, width=640, max_amp=0.08, camera_motion=0.35, rotation_deg=20,
                     deform_modes=3, brightness_drift=0.1)
+PIPE_WARM = 12  # the pipelined slice: bench.py's 12 warm-up frames, then 12 measured
+# the Sim(3) alignment's file (torch.linalg.svd reads its convergence info
+# on the host); a keyframe dispatch's waits there are counted apart
+SVD_SITE = os.path.join("defslam_tpu_torch", "geometry", "se3.py") + ":"
 OCCLUSION = (13, 14)
 CHECKPOINT_AFTER = 12  # the split run saves after this frame
 RESULT_FILES = ("Matches.txt", "StatusTracking.txt", "MapPointUsage.txt", "Trajectory.txt",
@@ -982,6 +1009,164 @@ def stereo_check(cfg: Config, seq, dev, tol: float = 1e-4) -> dict:
     return row
 
 
+def pipelined_config(camera, **tracking) -> Config:
+    """The JAX package's measured configuration (bench.py:60-90)."""
+    return Config(camera=camera,
+                  orb=OrbConfig(n_features=1200, n_levels=6, max_keypoints=1536),
+                  sft=SfTConfig(lm_iterations=50),
+                  tracking=TrackingConfig(keyframe_period=10, pipeline_depth=2, **tracking),
+                  capacity=CapacityConfig(max_map_points=4096, max_keyframes=16))
+
+
+def pipelined_run(frames, cfg: Config, dev, check_waits: bool = False):
+    """bench.py's protocol: ``PIPE_WARM`` frames, a ``flush``, then the rest
+    measured by the host clock per ``track_monocular`` call, the final
+    ``flush`` added to the last frame.  With ``check_waits`` every measured
+    dispatch runs under ``profiling.host_waits``: mode "error" where it
+    dispatches no keyframe work, else "warn" with its waits counted (and
+    "warn" for the first, which may meet first-use set-up).  Returns
+    (system, measured frame ms, whether each dispatched keyframe work,
+    the waits counted)."""
+    s = System(cfg, device=dev)
+    for t in range(PIPE_WARM):
+        s.track_monocular(frames[t], timestamp=float(t))
+    s.flush()
+    torch.cuda.synchronize()
+    frame_ms, kf_work, waits = [], [], []
+    for t in range(PIPE_WARM, len(frames)):
+        work = (s.frames_since_kf + 1 >= cfg.tracking.keyframe_period
+                or s._pending_kf_b is not None)
+        mode = "warn" if work or t == PIPE_WARM else "error"
+        t0 = time.perf_counter()
+        if check_waits:
+            with profiling.host_waits(mode) as w:
+                s.track_monocular(frames[t], timestamp=float(t))
+        else:
+            s.track_monocular(frames[t], timestamp=float(t))
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        kf_work.append(work)
+        if check_waits:
+            waits.append(dict(frame=t, mode=mode, keyframe_work=work, waits=sum(w.values()),
+                              where=dict(w)))
+    t0 = time.perf_counter()
+    s.flush()
+    torch.cuda.synchronize()
+    frame_ms[-1] += (time.perf_counter() - t0) * 1e3
+    return s, frame_ms, kf_work, waits
+
+
+def _frame_stats(s: System, frame_ms, kf_work) -> dict:
+    ms = sorted(frame_ms)
+    return {"frame_p50_ms": statistics.median(ms),
+            "frame_p95_ms": float(np.percentile(ms, 95)), "frame_max_ms": ms[-1],
+            "keyframe_frame_ms": [x for x, w in zip(frame_ms, kf_work) if w],
+            "fps": len(ms) / (sum(ms) / 1e3), "rollbacks": s.n_rollbacks,
+            "template_swaps": sum(m["template"] for m in s._metrics[1:])}
+
+
+def _same_rows(a: System, b: System, tol: float = 1e-6) -> tuple[bool, float]:
+    """Metrics rows equal and the largest trajectory gap (within ``tol``)."""
+    gap = max((float(np.abs(np.asarray(x[1]) - np.asarray(y[1])).max())
+               for x, y in zip(a.trajectory, b.trajectory)), default=0.0)
+    same = (a._metrics == b._metrics and len(a.trajectory) == len(b.trajectory)
+            and all(x[0] == y[0] for x, y in zip(a.trajectory, b.trajectory)))
+    return same and gap <= tol, gap
+
+
+def pipelined_slice(dev) -> dict:
+    """Phase 10 (see the module's docstring)."""
+    seq = make_sequence(n_frames=2 * N_FRAMES, **BENCH_MOTION)
+    frames = [torch.as_tensor(f.astype(np.uint8), device=dev) for f in seq.frames]
+    torch.cuda.synchronize()
+    modes = {"synchronous": dict(pipelined=False), "pipelined_fused": {},
+             "pipelined_split": dict(split_keyframe_dispatch=True)}
+    runs, stats, launches = {}, {}, {}
+    for name, tracking in modes.items():
+        split = name == "pipelined_split"
+        if split:
+            cuda_build.LAUNCHES.clear()
+        s, frame_ms, kf_work, _ = pipelined_run(frames, pipelined_config(seq.camera, **tracking),
+                                                dev)
+        if split:
+            launches = dict(cuda_build.LAUNCHES)
+        runs[name] = s
+        stats[name] = {**_frame_stats(s, frame_ms, kf_work),
+                       "ate": gtmod.ate_rmse_trajectory(s.trajectory, seq.poses)}
+        print("pipelined", name, json.dumps(stats[name]),
+              "states", [m["state"] for m in s._metrics], flush=True)
+    # the host-wait checks on a run of their own, so the timed runs above
+    # carry no instrumentation
+    *_, waits = pipelined_run(frames, pipelined_config(seq.camera, **modes["pipelined_split"]),
+                              dev, check_waits=True)
+    print("pipelined host_waits", json.dumps(waits), "launches", launches, flush=True)
+    for name, s in runs.items():
+        if any(m["state"] != TrackingState.OK.name for m in s._metrics):
+            raise SystemExit(f"pipelined slice ({name}): not every frame tracked")
+    if stats["pipelined_split"]["template_swaps"] < 1:
+        raise SystemExit("pipelined slice: the split run swapped no template")
+    if launches.get("hamming_matrix", 0) < 1 or launches.get("windowed_match", 0) < 1:
+        raise SystemExit(f"pipelined slice: a kernel did not launch: {launches}")
+    for w in waits:
+        svd = sum(n for where, n in w["where"].items() if where.startswith(SVD_SITE))
+        if w["keyframe_work"] and (w["waits"] - svd > 2 or svd > 4):
+            raise SystemExit(f"pipelined slice: a keyframe dispatch waited on the card more "
+                             f"than the branch reads and the SVD's: {w}")
+    same, gap = _same_rows(runs["synchronous"], runs["pipelined_fused"])
+    if not same:
+        raise SystemExit(f"pipelined slice: the pipelined run's rows differ from the "
+                         f"synchronous run's (trajectory gap {gap})")
+    ate_f, ate_s = stats["pipelined_fused"]["ate"], stats["pipelined_split"]["ate"]
+    if not ate_s < max(2.0 * ate_f, ate_f + 0.02):
+        raise SystemExit(f"pipelined slice: split ATE {ate_s} against fused {ate_f}")
+    return {"stats": stats, "host_waits": waits, "launches": launches,
+            "pipelined_vs_synchronous_gap": gap, "rollbacks": pipelined_rollbacks(seq, frames, dev)}
+
+
+def pipelined_rollbacks(seq, frames, dev) -> dict:
+    """A blank frame at the keyframe slot (frame 10): the pipelined run must
+    roll the optimistic keyframe back and end as the synchronous run.  A
+    blank frame right after a split keyframe (frame 11, between the
+    halves): the run must recover, with the stores consistent."""
+    blank = lambda fs, at: [torch.full_like(f, 128) if t == at else f  # noqa: E731
+                            for t, f in enumerate(fs)]
+    period = 10
+    out = {}
+    at_kf = blank(frames[:period + 1], period)
+    runs = {}
+    for name, tracking in (("synchronous", dict(pipelined=False)), ("pipelined", {})):
+        s = System(pipelined_config(seq.camera, **tracking), device=dev)
+        for t, f in enumerate(at_kf):
+            s.track_monocular(f, timestamp=float(t))
+        s.flush()
+        runs[name] = s
+    a, b = runs["synchronous"], runs["pipelined"]
+    same, gap = _same_rows(a, b)
+    same = same and all(getattr(a, k) == getattr(b, k) for k in ("kf_counter", "template_ref_kf"))
+    same = same and int(a.kfs.valid.sum()) == int(b.kfs.valid.sum())
+    same = same and len(a.template_history) == len(b.template_history)
+    out["at_keyframe"] = {"equal": same, "gap": gap, "rollbacks": b.n_rollbacks,
+                          "states": [m["state"] for m in b._metrics]}
+    if not same or b.n_rollbacks < 1 or b._metrics[period]["state"] == "OK":
+        raise SystemExit(f"pipelined rollback at the keyframe slot: {out['at_keyframe']}")
+    after = blank(frames[:period + 5], period + 1)
+    s = System(pipelined_config(seq.camera, split_keyframe_dispatch=True), device=dev)
+    for t, f in enumerate(after):
+        s.track_monocular(f, timestamp=float(t))
+    s.flush()
+    pid = s.kfs.point_id
+    bound = pid[pid >= 0]
+    states = [m["state"] for m in s._metrics]
+    consistent = bool((bound < s.points.capacity).all()) and float(
+        s.points.valid[bound].float().mean()) > 0.5
+    out["after_split_keyframe"] = {"states": states, "rollbacks": s.n_rollbacks,
+                                   "consistent": consistent}
+    print("pipelined rollbacks", json.dumps(out), flush=True)
+    if (states[period + 1] == "OK" or states[-1] != "OK" or not consistent
+            or s.n_rollbacks < 1):
+        raise SystemExit(f"pipelined rollback after a split keyframe: {out}")
+    return out
+
+
 def main(kernels_only: bool = False) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1017,7 +1202,7 @@ def main(kernels_only: bool = False) -> int:
     # frame: frame 1 then gets 24 matches and 2 inliers in both packages,
     # and only relocalization recovers it.
     seq = make_sequence(n_frames=2 * N_FRAMES, **BENCH_MOTION)
-    cfg = Config(camera=seq.camera)
+    cfg = Config(camera=seq.camera, tracking=TrackingConfig(pipelined=False))
 
     rates = card_rates()
     print("card_rates", json.dumps(rates), flush=True)
@@ -1083,6 +1268,8 @@ def main(kernels_only: bool = False) -> int:
     phase_done("occlusion_gt_checkpoint")
     stereo = stereo_check(cfg, seq, dev)
     phase_done("stereo_gt")
+    pipe = pipelined_slice(dev)
+    phase_done("pipelined_slice")
     timing.update({
         "relocalize_ms": reloc["relocalize_ms"],
         "relocalize_call_ms": reloc["relocalize_call_ms"],
@@ -1093,11 +1280,13 @@ def main(kernels_only: bool = False) -> int:
         "save_state_ms": occl["save_state_ms"],
         "load_state_ms": occl["load_state_ms"],
         "stereo_ncc_ms": stereo["ms"],
+        "pipelined": pipe["stats"],
     })
     print("timing", json.dumps(timing), flush=True)
 
     paths = {"tracking": launches_t, "mapping": launches_m,
-             "relocalization": reloc["launches"], "occlusion_gt": occl["launches"]}
+             "relocalization": reloc["launches"], "occlusion_gt": occl["launches"],
+             "pipelined": pipe["launches"]}
     for k, name in ((kern_h, "hamming_matrix"), (kern_w, "windowed_match")):
         k["launches_by_path"] = {p: counts.get(name, 0) for p, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -1128,7 +1317,7 @@ def main(kernels_only: bool = False) -> int:
     out = {"nvidia_smi": smi, "build_s": build_s, "kernels": kernels, "timing": timing,
            "frames": rows, "mapping_frames": map_rows, "mapping_diags": gpu_map.map_diags,
            "keyframe_card_vs_cpu": kf_row, "relocalization": reloc, "occlusion": occl,
-           "stereo_card_vs_cpu": stereo, "phase_s": phase_s}
+           "stereo_card_vs_cpu": stereo, "pipelined": pipe, "phase_s": phase_s}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(out, f, indent=1)

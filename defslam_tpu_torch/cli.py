@@ -15,6 +15,12 @@ templates).  ``--config`` reads a YAML of settings (the camera comes from
 the render); ``--tune`` and ``--step`` are the reference viewer's live
 regularizer sliders and its step-"Next" gating (DefViewer.cc:53-120,
 System.cc:328-333).  Runs on the CUDA card unless ``--device cpu``.
+
+The System runs its default pipelined protocol: the progress line shows
+``?`` for counts not yet validated, and the pipeline is drained every 30
+frames, every frame under ``--step`` / ``--tune`` (which want the
+validated state), and before the metrics files are written.  With
+``DEFSLAM_PROFILE=1`` a table of stage times ends the run.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ def main(argv=None) -> int:
                          "dotted config paths) every frame and apply changed parameters")
     args = p.parse_args(argv)
 
+    from defslam_tpu_torch import profiling
     from defslam_tpu_torch.config import Config
     from defslam_tpu_torch.io.synthetic import make_sequence
     from defslam_tpu_torch.system import System
@@ -62,13 +69,14 @@ def main(argv=None) -> int:
             sys_.track_monocular_ct(seq.frames[t], seq.depths[t], float(t))
         else:
             sys_.track_monocular(seq.frames[t], float(t))
-        _progress(sys_)
+        _progress(sys_, interactive=args.step or tuner is not None)
         if tuner is not None:
             tuner.poll(sys_)
         if args.step:
             input("\n[step] Enter for next frame... ")
 
-    sys_.write_metrics()
+    sys_.write_metrics()  # drains the pipeline first
+    profiling.print_report()  # nothing unless DEFSLAM_PROFILE=1
     export.snapshot(sys_, sys_.cfg.output_dir)
     n = len(sys_._metrics)
     dt = time.perf_counter() - t_start
@@ -77,11 +85,19 @@ def main(argv=None) -> int:
     return 0
 
 
-def _progress(sys_) -> None:
-    """One progress line per frame, rewritten in place."""
+def _progress(sys_, interactive: bool = False, every: int = 30) -> None:
+    """One progress line per frame, rewritten in place.  The pipeline is
+    not drained every frame (that would serialize the run at its
+    keyframes): counts not yet validated print as ``?``, and it is flushed
+    every ``every`` frames, or every frame when ``interactive``."""
     m = sys_._metrics[-1]
+    if interactive or m["frame"] % every == 0:
+        sys_.flush()
+        m = sys_._metrics[-1]
+    matches = f"{m['matches']:4d}" if m["matches"] >= 0 else "   ?"
+    inliers = f"{m['inliers']:4d}" if m["inliers"] >= 0 else "   ?"
     print(f"\rframe {m['frame']:5d} [{m['state']:>15s}] "
-          f"matches {m['matches']:4d} inliers {m['inliers']:4d}"
+          f"matches {matches} inliers {inliers}"
           + (" KF" if m["keyframe"] else "   ")
           + (" TEMPLATE" if m["template"] else ""),
           end="", flush=True)

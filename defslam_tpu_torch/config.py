@@ -12,8 +12,7 @@ shape derived from them.
 This is the PyTorch port's own copy of ``defslam_tpu/config.py`` (the port
 imports nothing of the JAX package).  ``yaml`` is imported only inside
 :func:`load_raw_yaml`, so the package imports without PyYAML installed.
-``tracking.pipelined`` / ``pipeline_depth`` are read as off by the port's
-synchronous ``System``; ``parallel`` is not used by the port yet.
+``parallel`` is not used by the port yet.
 """
 
 from __future__ import annotations
@@ -260,9 +259,10 @@ class TrackingConfig:
     # re-expressed for async device dispatch).  Tracking failures are
     # detected up to `pipeline_depth` frames late and rolled back (the
     # failed frame + newer in-flight frames replay synchronously);
-    # keyframe frames always synchronize.  Depth 2 fully hides a
-    # host<->device round trip that is longer than one frame's device
-    # compute (e.g. a tunneled TPU); depth 1 = the round-2 behavior.
+    # keyframe frames are pipelined too.  Depth 2 hides a host<->device
+    # round trip longer than one frame's device compute; depth 1 validates
+    # each frame while the next one is dispatched.  pipelined=False is the
+    # synchronous protocol (each frame validated before its call returns).
     pipelined: bool = True
     pipeline_depth: int = 2
     # split the keyframe mapping chain into TWO device dispatches with the

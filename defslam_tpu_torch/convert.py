@@ -19,7 +19,7 @@ import torch
 
 from defslam_tpu_torch.config import Config, _build
 from defslam_tpu_torch.frontend import Features
-from defslam_tpu_torch.mapping.mapper import CovisPairs
+from defslam_tpu_torch.mapping.mapper import CovisPairs, KFCarry
 from defslam_tpu_torch.mapping.normals import PairObs
 from defslam_tpu_torch.mapping.warp import DiffProps
 from defslam_tpu_torch.mapstore.state import KeyframeStore, PointStore
@@ -30,7 +30,7 @@ from defslam_tpu_torch.tracking.tracker import FrameMatches
 _PARTS = {
     "points": PointStore, "kfs": KeyframeStore, "template": Template,
     "feats": Features, "matches": FrameMatches, "covis": CovisPairs,
-    "diff_props": DiffProps, "pair_obs": PairObs,
+    "diff_props": DiffProps, "pair_obs": PairObs, "carry": KFCarry,
 }
 
 # int32 fields of the JAX stores that the port holds as int64 indices
@@ -39,6 +39,8 @@ _INDEX_FIELDS = {
     # FrameMatches and CovisPairs
     "kp_of_point", "n_matches", "n_dropped", "pair_kf", "pid_table", "kp_new", "kp_other",
     "n_pairs", "n_pair_dropped", "n_pt_dropped",
+    # KFCarry
+    "slot", "kf_t",
 }
 
 
@@ -53,6 +55,7 @@ class MapState(NamedTuple):
     covis: CovisPairs | None = None
     diff_props: DiffProps | None = None
     pair_obs: PairObs | None = None
+    carry: KFCarry | None = None
 
 
 def config_from_dict(d: dict) -> Config:
@@ -103,7 +106,8 @@ def namedtuple_from_numpy(cls, d: dict, device, prefix: str = ""):
 def state_from_numpy(d: dict[str, np.ndarray], device) -> MapState:
     """The port's map state from flat numpy arrays keyed ``<part>.<field>``
     for the parts of ``_PARTS`` (``points``, ``kfs``, ``template``,
-    ``feats``, ``matches``, ``covis``, ``diff_props``, ``pair_obs``), plus
+    ``feats``, ``matches``, ``covis``, ``diff_props``, ``pair_obs``,
+    ``carry``: the keyframe step's first half's hand-over), plus
     ``pose`` and ``prev_pose``; each part optional."""
     def part(name):
         if not any(k.startswith(name + ".") for k in d):

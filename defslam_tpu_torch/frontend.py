@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from defslam_tpu_torch.config import Config
 from defslam_tpu_torch.geometry import camera as cammod
 from defslam_tpu_torch.ops import fast, orb, pyramid
+from defslam_tpu_torch.utils import device_constant
 
 
 class Features(NamedTuple):
@@ -121,7 +122,8 @@ def extract_features(img: torch.Tensor, cfg: Config) -> Features:
         ]
     )
     blur = pyramid.gaussian_blur_batched(raw, sigma=2.0, radius=3)
-    level_hw = torch.tensor([list(levels[lv].shape) for lv in used], device=dev)
+    hw = tuple(tuple(levels[lv].shape) for lv in used)
+    level_hw = device_constant(("level_hw", hw), lambda: np.asarray(hw, np.int64), dev)
     ang, desc = orb.orient_describe_stack(raw, blur, torch.cat(canvas_of), xy_lv, level_hw)
 
     cat = Features(

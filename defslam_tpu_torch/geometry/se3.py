@@ -56,7 +56,7 @@ def _rt_to_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     T = torch.zeros(R.shape[:-2] + (4, 4), dtype=R.dtype, device=R.device)
     T[..., :3, :3] = R
     T[..., :3, 3] = t
-    T[..., 3, 3] = 1.0
+    T[..., 3, 3].fill_(1.0)  # a Python scalar: no host-to-device copy
     return T
 
 
@@ -85,7 +85,8 @@ def orthonormalize(T: torch.Tensor) -> torch.Tensor:
     the per-frame renormalization that keeps composed poses stable."""
     R = T[..., :3, :3]
     for _ in range(3):
-        R = 0.5 * (R + torch.linalg.inv(R.transpose(-1, -2)))
+        # inv_ex: inv without its error check, a host read of the info
+        R = 0.5 * (R + torch.linalg.inv_ex(R.transpose(-1, -2)).inverse)
     return _rt_to_mat(R, T[..., :3, 3])
 
 
@@ -101,7 +102,10 @@ def horn_alignment(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor):
     """Closed-form weighted Sim(3) alignment (Horn/Umeyama): (s, R, t)
     minimizing sum_i w_i || s R src_i + t - dst_i ||^2.  src, dst (N, 3),
     w (N,) mask or weights.  The sign of det(U) det(Vt) flips the last
-    singular direction, so R is a rotation, never a reflection."""
+    singular direction, so R is a rotation, never a reflection.
+    ``torch.linalg.svd`` reads its convergence info on the host: on a
+    card, two waits for the stream a call (inside the keyframe step's
+    registration, just before its verdict is read)."""
     wsum = torch.clamp(w.sum(), min=_EPS)
     wn = w / wsum
     mu_s = torch.sum(wn[:, None] * src, dim=0)

@@ -17,11 +17,14 @@ keyframe:
 All keyframes share the camera-wide retina domain, so one bending matrix
 serves every warp.  The JAX package runs the whole step as one device
 computation with ``lax.cond``; here :func:`keyframe_step` is a sequence of
-tensor functions with four host reads (the slot, the template gate, the
-registration verdict, and the caller's read of the diagnostics).  Repeated
+tensor functions with two host reads, the branch decisions eager PyTorch
+cannot take on the device (the template gate and the registration's
+verdict).  The slot and the template-source keyframe stay 0-dim device
+tensors that index the stores (``utils.take`` / ``utils.put_``).  Repeated
 scatter indices follow the reference's in-order rule (the last writer
 wins), through ``utils.last_writer``; every ranking keeps the lower index
-first on ties.  The stores are updated in place.
+first on ties.  The first half updates the keyframe store in place; the
+second half's writes make new tensors.
 """
 
 from __future__ import annotations
@@ -45,7 +48,8 @@ from defslam_tpu_torch.ops.windowed_match import windowed_match
 from defslam_tpu_torch.template import mesh as meshmod
 from defslam_tpu_torch.tracking import tracker
 from defslam_tpu_torch.utils import (
-    first_argmax, first_argmin, last_writer, linspace, masked_median, psd_solve, scatter_last,
+    first_argmax, first_argmin, last_writer, linspace, masked_median, psd_solve, put_,
+    scatter_last, take,
 )
 
 # padded capacity of matched points per warp pair
@@ -101,7 +105,7 @@ class CovisPairs(NamedTuple):
 
 
 def covis_pairs(point_id: torch.Tensor, retina: torch.Tensor, kf_valid: torch.Tensor,
-                points_valid: torch.Tensor, slot: int, cfg: Config) -> CovisPairs:
+                points_valid: torch.Tensor, slot, cfg: Config) -> CovisPairs:
     """Covisible-anchor selection and matched-pair tables
     (SchwarpDatabase::add): every stored keyframe sharing at least
     ``min_shared_points`` map points with the new one, strongest first.
@@ -117,7 +121,7 @@ def covis_pairs(point_id: torch.Tensor, retina: torch.Tensor, kf_valid: torch.Te
     dest_all = torch.where(point_id >= 0, row * p_cap + point_id, f_cap * p_cap)
     win = last_writer(dest_all, f_cap * p_cap).reshape(f_cap, p_cap)
     inv_all = torch.where(win >= 0, win % k_cap, win)  # (F, P) keypoint index, -1
-    inv_new = inv_all[slot]
+    inv_new = take(inv_all, slot)
 
     shared = (inv_new >= 0)[None, :] & (inv_all >= 0) & points_valid[None, :]
     counts = shared.sum(dim=1)
@@ -141,7 +145,7 @@ def covis_pairs(point_id: torch.Tensor, retina: torch.Tensor, kf_valid: torch.Te
     sel_ok = (ones > 0) & pair_valid[:, None]
     kp_new = inv_new[pid_sel]
     kp_i = inv_all[pair_kf[:, None], pid_sel]
-    uv1 = retina[slot][torch.clamp(kp_new, 0, k_cap - 1)]
+    uv1 = take(retina, slot)[torch.clamp(kp_new, 0, k_cap - 1)]
     uv2 = retina[pair_kf[:, None], torch.clamp(kp_i, 0, k_cap - 1)]
     zero2 = torch.zeros_like(uv1)
     return CovisPairs(
@@ -379,7 +383,7 @@ def register_surface(surf_xyz, map_xyz_cam, mask, cfg: Config):
     )
 
 
-def apply_densify(point_id: torch.Tensor, n_obs: torch.Tensor, slot: int,
+def apply_densify(point_id: torch.Tensor, n_obs: torch.Tensor, slot,
                   kf_idx: torch.Tensor, best: torch.Tensor):
     """Merge densified matches into the observation tables
     (DefORBmatcher.cc:270-292).  Per (pair, kp k) with match j = best:
@@ -390,7 +394,7 @@ def apply_densify(point_id: torch.Tensor, n_obs: torch.Tensor, slot: int,
     n_pairs, k_cap = best.shape
     f_cap = point_id.shape[0]
     p_cap = n_obs.shape[0]
-    pid_new = point_id[slot]
+    pid_new = take(point_id, slot)
 
     j = torch.clamp(best, 0, k_cap - 1)
     matched = best >= 0
@@ -414,15 +418,15 @@ def apply_densify(point_id: torch.Tensor, n_obs: torch.Tensor, slot: int,
     return flat.reshape(f_cap, k_cap), n_obs + delta[:-1]
 
 
-def write_normals(norm_k, norm_valid, slot: int, pid_row, k_solved, solved_ok):
+def write_normals(norm_k, norm_valid, slot, pid_row, k_solved, solved_ok):
     """Write the solved per-point normals into the keyframe's per-keypoint
     slots (Surface::setNormalSurfacePoint), in place.  Returns (norm_k,
     norm_valid, number written)."""
     p_cap = k_solved.shape[0]
     pid = torch.clamp(pid_row, 0, p_cap - 1)
     has = (pid_row >= 0) & solved_ok[pid]
-    norm_k[slot] = torch.where(has[:, None], k_solved[pid], norm_k[slot])
-    norm_valid[slot] = norm_valid[slot] | has
+    put_(norm_k, slot, torch.where(has[:, None], k_solved[pid], take(norm_k, slot)))
+    put_(norm_valid, slot, take(norm_valid, slot) | has)
     return norm_k, norm_valid, has.sum()
 
 
@@ -465,7 +469,7 @@ def exploration_count(kp_xy, kp_valid, pid_row, cfg: Config) -> torch.Tensor:
     return (kp_valid & (pid_row < 0) & outside).sum()
 
 
-def select_ref_keyframe(pid_row, point_ref_kf, point_valid, kf_valid, slot: int) -> torch.Tensor:
+def select_ref_keyframe(pid_row, point_ref_kf, point_valid, kf_valid, slot) -> torch.Tensor:
     """selectKeyframe (DefLocalMapping.cc:411-441): the points the new
     keyframe observes vote for their creating keyframe; the first maximum
     wins, the new keyframe itself without votes."""
@@ -513,7 +517,7 @@ def regen_template(surf_ctrl, reg: registration.RegistrationResult, kf_pose, ret
 
 
 def rebuild_points(points: PointStore, regen: TemplateRegen, kf_pose, K, pid_row, kp_valid,
-                   kp_desc, kp_angle, slot: int, dom, cfg: Config, kf_counter: int = 0):
+                   kp_desc, kp_angle, slot, dom, cfg: Config, kf_counter: int = 0):
     """CreateNewMapPoints (DefLocalMapping.cc:240-347):
 
     1. points observed by the reference keyframe move onto the new surface
@@ -582,7 +586,7 @@ def cull_points(points: PointStore, point_id, kf_valid, kf_counter: int = 1 << 3
     p_cap = points.capacity
     ids = torch.where(kf_valid[:, None] & (point_id >= 0), point_id, p_cap).reshape(-1)
     referenced = torch.zeros(p_cap + 1, dtype=torch.bool, device=ids.device)
-    referenced[ids] = True
+    referenced.index_fill_(0, ids, True)
     keep = points.valid & (referenced[:-1] | (points.facet >= 0))
     age = int(kf_counter) - points.first_kf
     ratio = points.n_found.float() / torch.clamp(points.n_visible, min=1).float()
@@ -638,11 +642,13 @@ class MappingDiag(NamedTuple):
 
 
 class KFCarry(NamedTuple):
-    """What the first half of the keyframe step hands to the second."""
+    """What the first half of the keyframe step hands to the second (0-dim
+    tensors on the device, as in the JAX package): everything else the
+    second half needs lives in the stores."""
 
-    slot: int
-    kf_t: int  # template-source keyframe
-    gate: bool  # the NRSfM chain runs
+    slot: torch.Tensor  # int64 keyframe slot used
+    kf_t: torch.Tensor  # int64 template-source keyframe
+    gate: torch.Tensor  # bool: the NRSfM chain runs
     exploring: torch.Tensor
     n_new: torch.Tensor
     n_norm: torch.Tensor
@@ -652,11 +658,11 @@ class KFCarry(NamedTuple):
     pt_dropped: torch.Tensor
 
 
-def _choose_slot(kfs: KeyframeStore, points: PointStore, tmpl_ref_kf: int) -> int:
+def _choose_slot(kfs: KeyframeStore, points: PointStore, tmpl_ref_kf: int) -> torch.Tensor:
     """First free slot; at capacity the most redundant keyframe if more
     than 90% of its points have >= 4 observations (KeyFrameCulling's rule,
-    applied lazily), else the oldest; never the template's source.  One
-    host read."""
+    applied lazily), else the oldest; never the template's source.  A
+    0-dim int64 tensor on the device: no host read."""
     f_cap = kfs.capacity
     p_cap = points.capacity
     free = ~kfs.valid
@@ -670,14 +676,18 @@ def _choose_slot(kfs: KeyframeStore, points: PointStore, tmpl_ref_kf: int) -> in
     most_red = first_argmax(red_ratio)
     oldest = first_argmin(torch.where(evictable, kfs.frame_id, INT32_MAX))
     evict = torch.where(red_ratio.max() > 0.9, most_red, oldest)
-    return int(torch.where(free.any(), first_free, evict))
+    return torch.where(free.any(), first_free, evict)
+
+
+def _no_mark(_name, **_tensors):
+    return None
 
 
 def _kf_step_a(kfs, points, pose, feats: Features, kp_of_point, inlier, K, dom, bend_warp,
                tmpl_ref_kf: int, frame_id: int, cfg: Config, mark):
     """First half: slot choice and insertion, warps, densification,
-    distinctive descriptors, normals, and the template decision.  Returns
-    (kfs, points, KFCarry)."""
+    distinctive descriptors, normals, and the template decision.  No host
+    read.  Returns (kfs, points, KFCarry)."""
     c = cfg
     p_cap = points.capacity
     slot = _choose_slot(kfs, points, tmpl_ref_kf)
@@ -689,11 +699,11 @@ def _kf_step_a(kfs, points, pose, feats: Features, kp_of_point, inlier, K, dom, 
 
     cp = covis_pairs(kfs.point_id, kfs.retina, kfs.valid, points.valid, slot, c)
     batch = WarpBatch(uv1=cp.uv1, uv2=cp.uv2, mask=cp.mask, pair_valid=cp.pair_valid)
+    retina_s, kp_valid_s = take(kfs.retina, slot), take(kfs.kp_valid, slot)
     # per-KF warp domain (DefKeyFrame.cc:94-133): all warps of the batch
     # have the new keyframe as source, so one bbox domain serves them
     if c.mapping.per_kf_domain:
-        dom_w = bbox_domain(kfs.retina[slot], kfs.kp_valid[slot], dom,
-                            margin=c.mapping.kf_domain_margin)
+        dom_w = bbox_domain(retina_s, kp_valid_s, dom, margin=c.mapping.kf_domain_margin)
         bend_w = bspline.bending_matrix_dyn(dom_w, c.mapping.warp_ctrl_u, c.mapping.warp_ctrl_v)
     else:
         dom_w, bend_w = dom, bend_warp
@@ -701,7 +711,7 @@ def _kf_step_a(kfs, points, pose, feats: Features, kp_of_point, inlier, K, dom, 
     mark("warps")
 
     best, _dist = densify_matches(
-        ctrls, kfs.retina[slot], kfs.kp_valid[slot], kfs.desc[slot],
+        ctrls, retina_s, kp_valid_s, take(kfs.desc, slot),
         kfs.retina[cp.pair_kf], kfs.kp_valid[cp.pair_kf], kfs.desc[cp.pair_kf],
         dom_w, cp.pair_valid, c,
     )
@@ -724,7 +734,7 @@ def _kf_step_a(kfs, points, pose, feats: Features, kp_of_point, inlier, K, dom, 
     solved_ok = normal_reliability_gate(nres, c.regularizer.reliability)
     points = points._replace(
         norm_k0=torch.where(solved_ok[:, None], nres.k, points.norm_k0))
-    pid_row = kfs.point_id[slot]
+    pid_row = take(kfs.point_id, slot)
     norm_k, norm_valid, _ = write_normals(
         kfs.norm_k, kfs.norm_valid, slot, pid_row, nres.k, solved_ok)
     norm_k, norm_valid = propagate_normals(norm_k, norm_valid, cp, dps, nres.k, solved_ok)
@@ -732,16 +742,15 @@ def _kf_step_a(kfs, points, pose, feats: Features, kp_of_point, inlier, K, dom, 
 
     # template decision (needNewTemplate 355-404, selectKeyframe 411-441,
     # enoughNormals Surface.cc:62-67)
-    n_new = exploration_count(kfs.xy[slot], kfs.kp_valid[slot], pid_row, c)
+    n_new = exploration_count(take(kfs.xy, slot), kp_valid_s, pid_row, c)
     sel = select_ref_keyframe(pid_row, points.ref_kf, points.valid, kfs.valid, slot)
     exploring = n_new > c.mapping.points_to_template
     kf_t = torch.where(exploring, slot, sel)
     n_norm_t = kfs.norm_valid.sum(dim=1).gather(0, kf_t.reshape(1))[0]
     gate = (cp.n_pairs > 0) & (n_norm_t >= c.mapping.min_normals)
-    kf_t_h, gate_h = (int(v) for v in torch.stack([kf_t, gate.to(kf_t.dtype)]).tolist())
     mark("normals")
     carry = KFCarry(
-        slot=slot, kf_t=kf_t_h, gate=bool(gate_h), exploring=exploring, n_new=n_new,
+        slot=slot, kf_t=kf_t, gate=gate, exploring=exploring, n_new=n_new,
         n_norm=n_norm_t, n_pairs=cp.n_pairs, obs_dropped=obs_dropped,
         pair_dropped=cp.n_pair_dropped, pt_dropped=cp.n_pt_dropped,
     )
@@ -749,32 +758,41 @@ def _kf_step_a(kfs, points, pose, feats: Features, kp_of_point, inlier, K, dom, 
 
 
 def _kf_step_b(kfs, points, tmpl, pose, feats: Features, carry: KFCarry, K, dom, bend_sfn,
-               kf_counter: int, cfg: Config, mark):
+               kf_counter: int, cfg: Config, mark, split: bool = False,
+               gate: bool | None = None):
     """Second half: SfN, Sim(3) registration, re-template, re-anchoring
-    SfT, lifecycle culling.  Returns (kfs, points, template, pose, diag)."""
+    SfT, lifecycle culling.  Two host reads decide its branches: the gate
+    (``gate``, when the caller has read ``carry.gate`` already, saves it)
+    and the registration's verdict.  Its writes to the stores make new
+    tensors: the stores it is given stay as they were (they are the
+    rollback snapshot of the frame the split dispatch runs between the
+    halves).  ``split`` selects the re-anchor's formulation (see below).
+    Returns (kfs, points, template, pose, diag, gauge)."""
     c = cfg
     kf_t = carry.kf_t
     dev = pose.device
-    accepted = torch.tensor(False, device=dev)
-    reg_s = torch.tensor(1.0, device=dev)
-    if carry.gate:
-        retina_t = kfs.retina[kf_t]
-        pose_t = kfs.pose[kf_t].clone()
-        pid_t = kfs.point_id[kf_t].clone()
+    accepted = torch.zeros((), dtype=torch.bool, device=dev)
+    reg_s = torch.ones((), device=dev)
+    gauge = torch.eye(4, device=dev)
+    if bool(carry.gate) if gate is None else gate:  # host read: the chain runs
+        retina_t = take(kfs.retina, kf_t)
+        kp_valid_t = take(kfs.kp_valid, kf_t)
+        norm_valid_t = take(kfs.norm_valid, kf_t)
+        pose_t = take(kfs.pose, kf_t)
+        pid_t = take(kfs.point_id, kf_t)
         # per-KF SfN domain: the depth spline lives on the reference
         # keyframe's keypoint bbox; the extension prior, the polish anchors
         # and the template grid stay on the camera-wide domain
         if c.mapping.per_kf_domain:
-            dom_s = bbox_domain(retina_t, kfs.kp_valid[kf_t], dom,
-                                margin=c.mapping.kf_domain_margin)
+            dom_s = bbox_domain(retina_t, kp_valid_t, dom, margin=c.mapping.kf_domain_margin)
             bend_s = bspline.bending_matrix_dyn(dom_s, c.mapping.sfn_ctrl_u, c.mapping.sfn_ctrl_v)
         else:
             dom_s, bend_s = dom, bend_sfn
-        res_sfn = integrate_surface(retina_t, kfs.norm_k[kf_t], kfs.norm_valid[kf_t],
+        res_sfn = integrate_surface(retina_t, take(kfs.norm_k, kf_t), norm_valid_t,
                                     dom_s, bend_s, c, ext_dom=dom)
         surf_xyz, map_xyz, mask, embedded = registration_pairs(
-            res_sfn.xyz, pid_t, kfs.kp_xyz[kf_t], kfs.kp_xyz_valid[kf_t],
-            kfs.norm_valid[kf_t], points.valid, points.facet, pose_t,
+            res_sfn.xyz, pid_t, take(kfs.kp_xyz, kf_t), take(kfs.kp_xyz_valid, kf_t),
+            norm_valid_t, points.valid, points.facet, pose_t,
         )
         reg = register_surface(surf_xyz, map_xyz, mask, c)
         accepted = res_sfn.ok & reg.accepted
@@ -784,36 +802,48 @@ def _kf_step_b(kfs, points, tmpl, pose, feats: Features, carry: KFCarry, K, dom,
                                     bend_s, c, grid_dom=dom)
             regen = regen_template(ctrl_p, reg, pose_t, retina_t, dom, c, spline_dom=dom_s)
             points, pid_row_new = rebuild_points(
-                points, regen, pose_t, K, pid_t, kfs.kp_valid[kf_t], kfs.desc[kf_t],
-                kfs.angle[kf_t], kf_t, dom, c, kf_counter,
+                points, regen, pose_t, K, pid_t, kp_valid_t, take(kfs.desc, kf_t),
+                take(kfs.angle, kf_t), kf_t, dom, c, kf_counter,
             )
-            kfs.point_id[kf_t] = pid_row_new
-            kfs.surf_ctrl[kf_t] = ctrl_p
-            kfs.surf_valid[kf_t] = True
-            kfs.surf_dom[kf_t] = dom_s
+            kfs = kfs._replace(
+                point_id=put_(kfs.point_id.clone(), kf_t, pid_row_new),
+                surf_ctrl=put_(kfs.surf_ctrl.clone(), kf_t, ctrl_p),
+                surf_valid=put_(kfs.surf_valid.clone(), kf_t, True),
+                surf_dom=put_(kfs.surf_dom.clone(), kf_t, dom_s),
+            )
             mark("retemplate")
             # re-anchor camera and new mesh against the keyframe's features
-            # with the temporal term off (DefTracking.cc:115-117).  The
-            # keyframe is the current frame: the solve starts from `pose`
-            # and its result replaces the live pose.
-            m2 = tracker.match_points_to_frame(points, pose, K, feats, c)
-            res2 = tracker.sft_track(points, m2, feats, regen.template, pose, K, c, reg_temp=0.0)
+            # with the temporal term off (DefTracking.cc:115-117).  Fused,
+            # the keyframe is the current frame: the solve starts from
+            # `pose` and its result replaces the live pose (bit for bit the
+            # earlier behaviour).  Split, the system has moved on a frame:
+            # the solve anchors on the keyframe's stored pose, and the
+            # swap's change of gauge, pose_kf^-1 @ re-anchored pose, is
+            # applied to the live pose (and by the caller to its motion
+            # model) instead of rewinding to the keyframe's viewpoint.
+            pose_kf = take(kfs.pose, carry.slot) if split else pose
+            m2 = tracker.match_points_to_frame(points, pose_kf, K, feats, c)
+            res2 = tracker.sft_track(points, m2, feats, regen.template, pose_kf, K, c,
+                                     reg_temp=0.0)
             tmpl = regen.template._replace(nodes=res2.nodes)
             points = tracker.reposition_points(points, res2.nodes, c)
-            pose = res2.T
+            if split:
+                gauge = se3.inverse(pose_kf) @ res2.T
+                pose = pose @ gauge
+            else:
+                pose = res2.T
             reg_s = reg.s.float()
             mark("reanchor")
 
     points, n_culled = cull_points(points, kfs.point_id, kfs.valid, kf_counter)
     diag = MappingDiag(
-        slot=torch.tensor(carry.slot, device=dev), kf_t=torch.tensor(kf_t, device=dev),
-        accepted=accepted, exploring=carry.exploring, n_pairs=carry.n_pairs,
-        n_new=carry.n_new, n_norm=carry.n_norm, n_culled=n_culled,
+        slot=carry.slot, kf_t=kf_t, accepted=accepted, exploring=carry.exploring,
+        n_pairs=carry.n_pairs, n_new=carry.n_new, n_norm=carry.n_norm, n_culled=n_culled,
         obs_dropped=carry.obs_dropped, pair_dropped=carry.pair_dropped,
         pt_dropped=carry.pt_dropped, reg_scale=reg_s,
     )
     mark("cull")
-    return kfs, points, tmpl, pose, diag
+    return kfs, points, tmpl, pose, diag, gauge
 
 
 def keyframe_step(kfs: KeyframeStore, points: PointStore, tmpl: meshmod.Template,
@@ -832,15 +862,43 @@ def keyframe_step(kfs: KeyframeStore, points: PointStore, tmpl: meshmod.Template
     SfT's inlier gate; ``tmpl_ref_kf`` is the current template's source
     keyframe.  ``mark(name, **tensors)`` is called at the start and at the
     end of each stage, for timing and inspection (the densify stage hands
-    over its match table as ``best``).  The keyframe store is updated in place.  Returns (kfs,
-    points, template, pose, MappingDiag)."""
-    if mark is None:
-        def mark(_name, **_tensors):
-            return None
+    over its match table as ``best``).  The first half updates the
+    keyframe store in place.  Two host reads (the gate and the
+    registration's verdict).  Returns (kfs, points, template, pose,
+    MappingDiag).  The same computation runs as two calls,
+    :func:`keyframe_step_a` and :func:`keyframe_step_b`, so the caller can
+    put a frame between them (``tracking.split_keyframe_dispatch``)."""
+    mark = mark or _no_mark
     mark("start")
     kfs, points, carry = _kf_step_a(
         kfs, points, pose, feats, kp_of_point, inlier, K, dom, bend_warp, tmpl_ref_kf,
         frame_id, cfg, mark,
     )
     return _kf_step_b(kfs, points, tmpl, pose, feats, carry, K, dom, bend_sfn, kf_counter,
-                      cfg, mark)
+                      cfg, mark)[:5]
+
+
+def keyframe_step_a(kfs, points, pose, feats, kp_of_point, inlier, K, dom, bend_warp,
+                    tmpl_ref_kf: int, frame_id: int, cfg: Config,
+                    mark: Callable[..., None] | None = None):
+    """First half of the split keyframe chain (insert, warps, densify,
+    normals, the decision scalars), with no host read; see
+    :func:`keyframe_step`.  Returns (kfs, points, KFCarry)."""
+    mark = mark or _no_mark
+    mark("start")
+    return _kf_step_a(kfs, points, pose, feats, kp_of_point, inlier, K, dom, bend_warp,
+                      tmpl_ref_kf, frame_id, cfg, mark)
+
+
+def keyframe_step_b(kfs, points, tmpl, pose, feats, carry: KFCarry, K, dom, bend_sfn,
+                    kf_counter: int, cfg: Config, mark: Callable[..., None] | None = None,
+                    gate: bool | None = None):
+    """Second half of the split keyframe chain (SfN, Sim(3), re-template,
+    re-anchor, culling); see :func:`keyframe_step`.  ``pose`` is the live
+    pose, a frame past the keyframe; the re-anchor starts from the
+    keyframe's stored pose and the swap's gauge is applied to ``pose``.
+    The stores given stay unchanged.  Returns (kfs, points, template,
+    pose, diag, gauge): ``gauge`` (4, 4) is the identity unless the
+    template was swapped."""
+    return _kf_step_b(kfs, points, tmpl, pose, feats, carry, K, dom, bend_sfn, kf_counter,
+                      cfg, mark or _no_mark, split=True, gate=gate)

@@ -24,6 +24,7 @@ from typing import NamedTuple
 import torch
 
 from defslam_tpu_torch.ops import bspline
+from defslam_tpu_torch.utils import device_constant
 
 # derivative orders (du, dv) the projectivity residual reads, in z's order
 _DERIVS = ((1, 0), (0, 1), (2, 0), (1, 1), (0, 2))
@@ -147,7 +148,7 @@ def refine(ctrl0: torch.Tensor, uv1: torch.Tensor, uv2: torch.Tensor, w: torch.T
     k2 = 2 * k
     qu, qv = _coloc_grid(dom, nu, nv)
     n_q = qu.shape[0]
-    pix = torch.tensor([fx, fy], dtype=ctrl0.dtype, device=ctrl0.device)
+    pix = device_constant(("pix", fx, fy), lambda: [fx, fy], ctrl0.device, ctrl0.dtype)
     lam_r = (reg_weight / (8.0 * n_q)) ** 0.5
     Cd = _deriv_colocs(qu, qv, dom, nu, nv)
 
@@ -210,7 +211,7 @@ def diff_props(ctrl: torch.Tensor, uv1: torch.Tensor, uv2: torch.Tensor, mask: t
         [torch.stack([J12[..., 1, 1], -J12[..., 0, 1]], dim=-1),
          torch.stack([-J12[..., 1, 0], J12[..., 0, 0]], dim=-1)], dim=-2,
     ) / det[..., None, None]
-    pix = torch.tensor([fx, fy], dtype=val.dtype, device=val.device)
+    pix = device_constant(("pix", fx, fy), lambda: [fx, fy], val.device, val.dtype)
     err = torch.linalg.norm((val - uv2) * pix, dim=-1)
     return DiffProps(uv1=uv1, uv2=uv2, warped=val, J12=J12, J21=J21,
                      Huu=huu, Huv=huv, Hvv=hvv, mask=mask & (err <= max_err_px))

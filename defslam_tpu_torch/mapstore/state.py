@@ -17,7 +17,7 @@ import torch
 from defslam_tpu_torch.config import Config
 from defslam_tpu_torch.frontend import Features
 from defslam_tpu_torch.geometry import camera
-from defslam_tpu_torch.utils import last_writer
+from defslam_tpu_torch.utils import last_writer, put_
 
 
 class KeyframeStore(NamedTuple):
@@ -118,38 +118,39 @@ def empty_points(cfg: Config, device) -> PointStore:
 
 def add_keyframe(
     kfs: KeyframeStore,
-    slot: int,
+    slot,
     pose: torch.Tensor,
     feats: Features,
     retina: torch.Tensor,
     point_id: torch.Tensor,
-    frame_id: int,
+    frame_id,
     kp_xyz: torch.Tensor | None = None,
     kp_xyz_valid: torch.Tensor | None = None,
 ) -> KeyframeStore:
-    """Insert a keyframe at ``slot``.  Updates the store's tensors IN PLACE
-    (the JAX package donates the store to the same effect) and returns it."""
-    kfs.pose[slot] = pose
-    kfs.xy[slot] = feats.xy
-    kfs.retina[slot] = retina
-    kfs.desc[slot] = feats.desc
-    kfs.level[slot] = feats.level
-    kfs.angle[slot] = feats.angle
-    kfs.kp_valid[slot] = feats.valid
-    kfs.point_id[slot] = point_id
-    kfs.kp_xyz[slot] = 0.0 if kp_xyz is None else kp_xyz
-    kfs.kp_xyz_valid[slot] = False if kp_xyz_valid is None else kp_xyz_valid
-    kfs.frame_id[slot] = frame_id
-    kfs.valid[slot] = True
-    kfs.surf_valid[slot] = False
-    kfs.norm_valid[slot] = False
+    """Insert a keyframe at ``slot`` (an int or a 0-dim device tensor: no
+    host read).  Updates the store's tensors IN PLACE (the JAX package
+    donates the store to the same effect) and returns it."""
+    put_(kfs.pose, slot, pose)
+    put_(kfs.xy, slot, feats.xy)
+    put_(kfs.retina, slot, retina)
+    put_(kfs.desc, slot, feats.desc)
+    put_(kfs.level, slot, feats.level)
+    put_(kfs.angle, slot, feats.angle)
+    put_(kfs.kp_valid, slot, feats.valid)
+    put_(kfs.point_id, slot, point_id)
+    put_(kfs.kp_xyz, slot, 0.0 if kp_xyz is None else kp_xyz)
+    put_(kfs.kp_xyz_valid, slot, False if kp_xyz_valid is None else kp_xyz_valid)
+    put_(kfs.frame_id, slot, frame_id)
+    put_(kfs.valid, slot, True)
+    put_(kfs.surf_valid, slot, False)
+    put_(kfs.norm_valid, slot, False)
     return kfs
 
 
 def insert_keyframe_from_matches(
     kfs: KeyframeStore,
     n_obs: torch.Tensor,
-    slot: int,
+    slot,
     pose: torch.Tensor,
     feats: Features,
     kp_of_point: torch.Tensor,

@@ -18,7 +18,7 @@ import functools
 import numpy as np
 import torch
 
-from defslam_tpu_torch.utils import psd_solve
+from defslam_tpu_torch.utils import device_constant, psd_solve
 
 # 4x4 uniform cubic B-spline coefficient matrix: basis_j(t) = sum_k M[j,k] t^k
 _M = np.array(
@@ -51,7 +51,8 @@ def basis_1d(x: torch.Tensor, lo, hi, n: int, order: int = 0):
     derivative) at ``x``.  Returns (idx (...,), w (..., 4)): weights of
     control points idx..idx+3, scaled by the chain-rule factor h^-order."""
     i, t, h = _locate(x, lo, hi, n)
-    m = torch.as_tensor(_basis_matrix_np(order), dtype=torch.float32, device=x.device)
+    m = device_constant(("bspline_basis", order), lambda: _basis_matrix_np(order), x.device,
+                        torch.float32)
     tt = t[..., None]
     w = m[:, 3] * tt  # Horner
     w = (w + m[:, 2]) * tt

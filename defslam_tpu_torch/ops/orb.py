@@ -17,6 +17,8 @@ import functools
 import numpy as np
 import torch
 
+from defslam_tpu_torch.utils import device_constant
+
 HALF_PATCH = 15  # orientation patch radius, reference ORBextractor.cc
 PATTERN_CLIP = 13  # BRIEF sample coordinate range
 PATCH_R = 19  # covers the orientation disc (15) and the rotated BRIEF reach
@@ -79,14 +81,14 @@ def orient_describe_stack(
     dy31, dx31, mask31 = _circle_offsets()
     s = PATCH_R - HALF_PATCH
     raw31 = patch_raw[:, s : s + 31, s : s + 31].reshape(-1, 31 * 31)
-    wx = torch.as_tensor((dx31 * mask31).reshape(-1), dtype=torch.float32, device=dev)
-    wy = torch.as_tensor((dy31 * mask31).reshape(-1), dtype=torch.float32, device=dev)
+    wx = device_constant("orb_moment_x", lambda: (dx31 * mask31).reshape(-1), dev, torch.float32)
+    wy = device_constant("orb_moment_y", lambda: (dy31 * mask31).reshape(-1), dev, torch.float32)
     m10 = raw31 @ wx
     m01 = raw31 @ wy
     angle = torch.atan2(m01, m10)
 
     # steered BRIEF: in-patch index = round(xy + r) - (c - R), clipped
-    pat = torch.as_tensor(brief_pattern(), dtype=torch.float32, device=dev)
+    pat = device_constant("brief_pattern", brief_pattern, dev, torch.float32)
     ca, sa = torch.cos(angle), torch.sin(angle)
     px = pat[..., 0].reshape(-1)  # (512,)
     py = pat[..., 1].reshape(-1)

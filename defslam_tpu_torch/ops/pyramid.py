@@ -21,6 +21,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from defslam_tpu_torch.utils import device_constant
+
 
 def level_shapes(height: int, width: int, n_levels: int, scale_factor: float):
     """Static (h, w) per pyramid level (round, like cv::resize with
@@ -43,7 +45,8 @@ def gaussian_blur_batched(stack: torch.Tensor, sigma: float = 2.0,
                           radius: int = 3) -> torch.Tensor:
     """Separable zero-padded Gaussian blur of a batch of single-channel
     images (L, H, W) f32 (the 7x7 sigma=2 blur applied before BRIEF)."""
-    k = torch.as_tensor(_gaussian_kernel(sigma, radius), device=stack.device)
+    k = device_constant(("gaussian_kernel", sigma, radius),
+                        lambda: _gaussian_kernel(sigma, radius), stack.device)
     x = stack[:, None]
     x = F.conv2d(x, k.view(1, 1, 1, -1), padding=(0, radius))
     x = F.conv2d(x, k.view(1, 1, -1, 1), padding=(radius, 0))
@@ -79,14 +82,14 @@ def _resize_taps(in_size: int, out_size: int):
 
 
 def _resize_axis(x: torch.Tensor, out_size: int, dim: int) -> torch.Tensor:
-    k0, k1, w0, w1 = _resize_taps(x.shape[dim], out_size)
-    dev = x.device
+    i0, i1, w0, w1 = (
+        device_constant(("resize_taps", x.shape[dim], out_size, j),
+                        lambda j=j: _resize_taps(x.shape[dim], out_size)[j], x.device)
+        for j in range(4))
     shape = [1, 1]
     shape[dim] = -1
-    i0 = torch.as_tensor(k0, device=dev)
-    i1 = torch.as_tensor(k1, device=dev)
-    w0 = torch.as_tensor(w0, device=dev).view(shape)
-    w1 = torch.as_tensor(w1, device=dev).view(shape).double()
+    w0 = w0.view(shape)
+    w1 = w1.view(shape).double()
     first = w0 * x.index_select(dim, i0)
     return (first.double() + w1 * x.index_select(dim, i1).double()).float()
 

@@ -1,26 +1,43 @@
 """defslam_tpu_torch.System — the port's public API.
 
 Port of ``defslam_tpu/system.py``: plane-at-z=1 initialization
-(DefTracking.cc:583-664), then per frame the synchronous track / validate /
-commit protocol with the wide-window retry, relocalization against the
-stored keyframes (``tracking.pose_opt.relocalize``) and the LOST state, and
-every ``tracking.keyframe_period`` frames a keyframe with the whole NRSfM
-mapping chain (``mapping.mapper.keyframe_step``: warps, densification,
-normals, shape-from-normals, Sim(3) registration, re-template, re-anchor).
-Around it: the ground-truth entry points (``track_monocular_ct`` /
+(DefTracking.cc:583-664), then per frame the track / validate / commit
+protocol with the wide-window retry, relocalization against the stored
+keyframes (``tracking.pose_opt.relocalize``) and the LOST state, and every
+``tracking.keyframe_period`` frames a keyframe with the whole NRSfM mapping
+chain (``mapping.mapper.keyframe_step``: warps, densification, normals,
+shape-from-normals, Sim(3) registration, re-template, re-anchor).  Around
+it: the ground-truth entry points (``track_monocular_ct`` /
 ``track_monocular_gt``, ``groundtruth.gt``), the reference's text streams
 (:meth:`System.write_metrics`), checkpoints in the JAX package's npz format
 (:meth:`System.save_state` / :meth:`System.load_state`: either package
 loads the other's), live tuning and restart.
 
-The port always runs the synchronous protocol and the fused keyframe step:
-``tracking.pipelined``, ``pipeline_depth`` and
-``tracking.split_keyframe_dispatch`` are read as off (``flush`` and
-``shutdown`` have nothing to wait for), and the keyframe step's
-diagnostics are read back right after it instead of a frame later, which
-changes no result.  The JAX package's synchronous path re-anchors a second
-time after a template swap when the GT harness is on; its default
-(pipelined) path does not, and neither does the port.
+Two protocols, as in the JAX package (``Config.tracking``):
+
+- ``pipelined`` (the default, ``pipeline_depth`` 2): a frame is
+  dispatched, and only then is the oldest in-flight frame validated, from
+  scalars copied to pinned host memory behind its compute
+  (``utils.Readback``).  The frame's state is committed optimistically; a
+  keyframe frame's mapping chain is dispatched on it as well (the keyframe
+  store snapshotted first).  A frame that fails validation is rolled back
+  with every newer in-flight frame, and they are replayed through the
+  synchronous ladder in frame order.  Metrics rows hold -1 until their
+  frame is validated and are filled in place; the keyframe step's
+  diagnostics are read when they have landed.  ``flush`` drains it all.
+- synchronous (``pipelined=False``): every frame is validated before
+  ``track_monocular`` returns, and a keyframe's diagnostics are read right
+  after its step.  The two give the same metrics rows and trajectory.
+
+``split_keyframe_dispatch`` runs the chain as two calls,
+``keyframe_step_a`` and ``keyframe_step_b``, with the next frame dispatched
+between them; B re-anchors from the keyframe's stored pose and applies the
+swap's gauge to the live pose and the motion model.  The GT harness's
+per-keyframe angle evaluation needs the step's state at once, so it reads
+the diagnostics synchronously and turns the split off.  The JAX package's
+synchronous path re-anchors a second time after a template swap when the
+GT harness is on; its default (pipelined) path does not, and neither does
+the port.
 
 Everything runs on ``System.device``: CUDA unless the caller passes
 ``device="cpu"``.  Importing this module turns TF32 off for CUDA matmuls
@@ -35,11 +52,13 @@ import enum
 import json
 import os
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from defslam_tpu_torch import config as cfgmod
+from defslam_tpu_torch import profiling
 from defslam_tpu_torch.config import Config
 from defslam_tpu_torch.convert import numpy_from_tensor, tensor_from_numpy
 from defslam_tpu_torch.frontend import Features, extract_features
@@ -48,6 +67,7 @@ from defslam_tpu_torch.mapping import mapper
 from defslam_tpu_torch.mapstore import state as store
 from defslam_tpu_torch.template import mesh as meshmod
 from defslam_tpu_torch.tracking import pose_opt, tracker
+from defslam_tpu_torch.utils import Readback
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -64,12 +84,25 @@ class TrackingState(enum.Enum):
 
 @dataclass
 class FrameResult:
-    pose: np.ndarray
+    pose: np.ndarray | torch.Tensor  # a device tensor for an optimistic frame
     state: TrackingState
     n_matches: int
     n_inliers: int
     is_keyframe: bool
     template_updated: bool
+
+
+class _InFlight(NamedTuple):
+    """A pipelined frame awaiting validation."""
+
+    img: torch.Tensor
+    out: tuple  # tracker.track_frame's outputs
+    timestamp: float
+    frame_id: int
+    backup: tuple  # (pose, prev_pose, template, points, frames_since_kf) before it
+    row: int  # its metrics row
+    kf_backup: tuple | None  # (kfs, kf_counter, template_ref_kf, len(template_history))
+    readback: Readback  # (stats, pose) on their way to the host
 
 
 def resolve_device(device=None) -> torch.device:
@@ -86,7 +119,8 @@ def resolve_device(device=None) -> torch.device:
 
 class System:
     """Monocular deformable SLAM (System.h:62-202 API: TrackMonocular,
-    Reset, Activate/DeactivateLocalizationMode, GetTrackingState)."""
+    Reset, Restart, Shutdown, Activate/DeactivateLocalizationMode,
+    GetTrackingState)."""
 
     def __init__(self, cfg: Config | str | None = None, device=None):
         if isinstance(cfg, str):
@@ -113,8 +147,16 @@ class System:
     # ----------------------------------------------------------- lifecycle
 
     def reset(self):
-        """Full map reset (System::Reset)."""
+        """Full map reset (System::Reset).  In-flight pipelined frames and
+        pending keyframe halves are dropped: the map they worked on is
+        being destroyed."""
         c = self.cfg
+        self._pending: list[_InFlight] = []
+        # (Readback of the diagnostics, metrics row, evaluate GT angles)
+        self._pending_map = None
+        # (KFCarry, Readback of its gate, features, metrics row, kf_counter)
+        self._pending_kf_b = None
+        self.n_rollbacks = 0  # in-flight frames found failed and replayed
         self.kfs = store.empty_keyframes(c, self.device)
         self.points = store.empty_points(c, self.device)
         self.template: meshmod.Template | None = None
@@ -140,7 +182,8 @@ class System:
         DefViewer.cc:53-120, for a headless host).  Keys are reference YAML
         names ('Regularizer.laplacian') or dotted config paths
         ('sft.lm_iterations'); values are coerced to the field's type.  The
-        next frame runs with the new Config."""
+        pipeline is flushed and the next frame runs with the new Config."""
+        self.flush()
         cfg = self.cfg
         for key, value in overrides.items():
             cfg = cfgmod.replace_path(cfg, cfgmod.reference_key_path(key), value)
@@ -150,15 +193,23 @@ class System:
     def restart(self):
         """System::Restart (System.cc:254-266): put the template back to its
         rest shape, keep the map."""
+        self.flush()
         if self.template is not None:
             self.template = self.template._replace(nodes=self.template.nodes_rest)
             self.points = tracker.reposition_points(self.points, self.template.nodes, self.cfg)
 
     def flush(self):
-        """Nothing is in flight: the port runs the synchronous protocol."""
+        """Validate every in-flight frame, dispatch a pending keyframe half
+        B, and read the last keyframe step's diagnostics (blocking).  The
+        frames come before B: their compute consumed the state before B,
+        and a rollback must not have to undo it."""
+        while self._pending:
+            self._finalize_pending()
+        self._dispatch_pending_kf_b()
+        self._finalize_pending_map()
 
     def shutdown(self):
-        """No threads to join and nothing in flight."""
+        """No threads to join; drain the pipeline."""
         self.flush()
 
     def activate_localization_mode(self):
@@ -172,11 +223,20 @@ class System:
 
     # ------------------------------------------------------------ tracking
 
-    def track_monocular(self, img, timestamp: float = 0.0) -> np.ndarray | None:
-        """Process one grayscale frame; returns the validated world->camera
-        pose (4x4 numpy) or None while not initialized / lost."""
+    def track_monocular(self, img, timestamp: float = 0.0):
+        """Process one grayscale frame (a numpy array, or a tensor, best
+        already on ``System.device``); returns the world->camera pose (4x4)
+        or None while not initialized / lost.
+
+        Under ``tracking.pipelined`` (the default) the pose returned for a
+        tracked frame is its SfT solution before validation, as a tensor on
+        the device; validation comes up to ``pipeline_depth`` frames later,
+        and a frame that fails it is rolled back and tracked again, its
+        outcome landing in the metrics and the trajectory, not in this
+        return value.  With ``pipelined=False``, or after :meth:`flush`,
+        poses are validated, and returned as numpy arrays."""
         self.frame_id += 1
-        img = torch.as_tensor(np.asarray(img), device=self.device)
+        img = self._upload(img)
         if img.ndim == 3:
             img = img.float().mean(dim=-1)
         reinit = self.state in (TrackingState.NO_IMAGES_YET, TrackingState.NOT_INITIALIZED)
@@ -185,12 +245,13 @@ class System:
         ):
             reinit = True
         if reinit:
+            self.flush()
             feats = extract_features(img, self.cfg)
             ok = self._initialize(feats, timestamp)
             self.state = TrackingState.OK if ok else TrackingState.NOT_INITIALIZED
             self._record(timestamp, 0, 0, ok, ok)
             return self.pose.cpu().numpy() if ok else None
-        result = self._validate_and_commit(img, self._track_frame(img), timestamp)
+        result = self._track(img, timestamp)
         if result.state == TrackingState.OK:
             self._lost_count = 0
             return result.pose
@@ -204,6 +265,7 @@ class System:
         System.cc:268-341)."""
         pose = self.track_monocular(img_left, timestamp)
         if pose is not None and self.cfg.save_results:
+            self.flush()  # the evaluation reads the validated state
             self._gt_evaluator().evaluate_stereo(self, img_left, img_right, baseline, timestamp)
         return pose
 
@@ -212,6 +274,7 @@ class System:
         depth map (System::TrackMonocularCTGT, System.cc:343-416)."""
         pose = self.track_monocular(img, timestamp)
         if pose is not None and self.cfg.save_results:
+            self.flush()  # the evaluation reads the validated state
             self._gt_evaluator().evaluate_depth(self, np.asarray(depth_map), timestamp)
         return pose
 
@@ -290,18 +353,137 @@ class System:
 
     # ------------------------------------------------------------ tracking
 
+    def _upload(self, img) -> torch.Tensor:
+        """The frame on ``self.device``.  A tensor already there is taken as
+        it is; a numpy frame bound for CUDA goes through pinned memory with
+        a non-blocking copy (a copy from pageable memory would make the
+        host wait for the stream, and serialize the pipeline)."""
+        if not torch.is_tensor(img):
+            img = torch.from_numpy(np.ascontiguousarray(img))
+            if self.device.type == "cuda":
+                img = img.pin_memory()
+        return img.to(self.device, non_blocking=True)
+
     def _track_frame(self, img, window_scale: float = 1.0):
         return tracker.track_frame(
             img, self.points, self.pose, self.prev_pose, self.template,
             self.K, self.cfg, window_scale=window_scale,
         )
 
+    def _track(self, img, timestamp: float) -> FrameResult:
+        """One tracked frame with a depth-D frame pipeline
+        (``tracking.pipeline_depth``): this frame is dispatched first, then
+        in-flight frames are validated until at most D - 1 remain, so the
+        readback of the oldest overlaps the newer frames' device work (the
+        reference's PARALLEL-mode overlap, System.cc:140-142, as an
+        asynchronous dispatch).  Keyframe frames are pipelined too: the
+        mapping chain is dispatched on the frame's unvalidated outputs,
+        after a snapshot of the keyframe store, which the chain's first
+        half writes in place.  A frame found failed up to D frames late is
+        rolled back from the backups, an optimistic keyframe insertion
+        with it, and it and every newer in-flight frame are replayed
+        through the synchronous retry ladder, in frame order."""
+        c = self.cfg
+        will_kf = (not self._localization_only
+                   and self.frames_since_kf + 1 >= c.tracking.keyframe_period)
+        pipelined = c.tracking.pipelined and self.state == TrackingState.OK
+        with profiling.stage("frame.dispatch"):
+            out = self._track_frame(img)
+        target = max(1, c.tracking.pipeline_depth) - 1 if pipelined else 0
+        with profiling.stage("frame.finalize"):
+            while len(self._pending) > target:
+                if not self._finalize_pending():
+                    # an in-flight frame failed: the state was rolled back and
+                    # the queue replayed; this frame's dispatch used stale
+                    # state, and a replay that ended LOST needs the ladder
+                    out = self._track_frame(img)
+                    pipelined = pipelined and self.state == TrackingState.OK
+        # the keyframe step's diagnostics, if they have landed (no wait: no
+        # consumer needs them before the next keyframe)
+        self._finalize_pending_map(force=False)
+        if not pipelined:
+            result = self._validate_and_commit(img, out, timestamp)
+            self._dispatch_pending_kf_b()
+            return result
+        feats, matches, res, new_points, stats = out
+        # the validation scalars start for the host right behind the
+        # frame's compute, ahead of any mapping work queued below
+        readback = Readback.start((stats, res.T))
+        backup = (self.pose, self.prev_pose, self.template, self.points, self.frames_since_kf)
+        self.prev_pose = self.pose
+        self.pose = res.T
+        self.template = self.template._replace(nodes=res.nodes)
+        self.points = new_points
+        # the metrics row now, in frame order, with -1 counts until validated
+        row = self._record(timestamp, -1, -1, will_kf, False)
+        kf_backup = None
+        if will_kf:
+            self._finalize_pending_map()
+            kf_backup = (store.KeyframeStore(*(t.clone() for t in self.kfs)), self.kf_counter,
+                         self.template_ref_kf, len(self.template_history))
+            self._insert_keyframe(feats, matches, res, row)
+            # the step may re-register or re-anchor the pose (a gauge jump):
+            # drop the velocity, as the synchronous path does
+            self.prev_pose = self.pose
+            self.frames_since_kf = 0
+        else:
+            self.frames_since_kf += 1
+            # half B of a split chain rides behind this frame's compute; the
+            # state before B is what this frame consumed, so it is also
+            # this frame's rollback snapshot of the keyframe store
+            kf_backup = self._dispatch_pending_kf_b()
+        self._pending.append(_InFlight(img, out, timestamp, self.frame_id, backup,
+                                       len(self._metrics) - 1, kf_backup, readback))
+        return FrameResult(res.T, TrackingState.OK, -1, -1, False, False)
+
+    def _finalize_pending(self) -> bool:
+        """Validate the oldest in-flight frame.  False when it failed: the
+        state was then rolled back and it and every newer in-flight frame
+        were replayed through the synchronous ladder (the queue is empty
+        afterwards)."""
+        f = self._pending.pop(0)
+        c = self.cfg
+        stats_h, pose_h = f.readback.get()
+        n_matches, n_inliers = int(stats_h[0]), int(stats_h[1])
+        if n_matches >= c.tracking.min_inliers_ok and n_inliers >= c.tracking.min_inliers_ok:
+            self.trajectory.append((f.timestamp, pose_h))
+            self._metrics[f.row].update(matches=n_matches, inliers=n_inliers,
+                                        n_local=int(stats_h[2]), match_dropped=int(stats_h[3]))
+            return True
+        self.n_rollbacks += 1
+        rest, self._pending = self._pending, []
+        (self.pose, self.prev_pose, self.template, self.points, self.frames_since_kf) = f.backup
+        # undo an optimistic keyframe insertion among these frames: the
+        # stores change only at keyframes and in order, so the oldest
+        # snapshot is the state before any of them
+        for kb in [f.kf_backup] + [e.kf_backup for e in rest]:
+            if kb is not None:
+                self.kfs, self.kf_counter, self.template_ref_kf, n_hist = kb
+                del self.template_history[n_hist:]
+                # the diagnostics or the undispatched half belong to the undone step
+                self._pending_map = None
+                self._pending_kf_b = None
+                break
+        # the failed frame reuses its dispatch (made from exactly the backup
+        # state); the newer ones are tracked again.  Each takes its own
+        # frame id back for the replay, and its row is replaced in place.
+        newest = self.frame_id
+        for e, out in [(f, f.out)] + [(e, None) for e in rest]:
+            self.frame_id = e.frame_id
+            if out is None:
+                out = self._track_frame(e.img)
+            n_rows = len(self._metrics)
+            self._validate_and_commit(e.img, out, e.timestamp)
+            if len(self._metrics) > n_rows:
+                self._metrics[e.row] = self._metrics.pop()
+        self.frame_id = newest
+        return False
+
     @staticmethod
     def _readback(out):
         """One host readback per frame attempt: the stats and the pose."""
-        stats, T = out[4], out[2].T
-        stats_h = stats.cpu().numpy()
-        return int(stats_h[0]), int(stats_h[1]), stats_h, T.cpu().numpy()
+        stats_h, pose_h = Readback.start((out[4], out[2].T)).get()
+        return int(stats_h[0]), int(stats_h[1]), stats_h, pose_h
 
     def _validate_and_commit(self, img, out, timestamp: float) -> FrameResult:
         c = self.cfg
@@ -338,10 +520,10 @@ class System:
             not self._localization_only
             and self.frames_since_kf >= c.tracking.keyframe_period
         )
-        self._record(timestamp, n_matches, n_inliers, is_kf, False,
-                     n_local=int(stats_h[2]), n_dropped=int(stats_h[3]))
+        row = self._record(timestamp, n_matches, n_inliers, is_kf, False,
+                           n_local=int(stats_h[2]), n_dropped=int(stats_h[3]))
         if is_kf:
-            self._insert_keyframe(feats, matches, res)
+            self._insert_keyframe(feats, matches, res, row)
             self.frames_since_kf = 0
             # the keyframe step may re-register (Sim(3) rescale) or
             # re-anchor the pose: a velocity spanning that gauge jump would
@@ -360,20 +542,77 @@ class System:
             extract_features(img, self.cfg), self.kfs, self.points, self.K, self.cfg)
         return (True, T) if bool(ok) else (False, None)
 
-    def _insert_keyframe(self, feats, matches, res) -> None:
-        """CreateNewKeyFrame and the mapping step: one fused
-        ``mapper.keyframe_step``, which also re-anchors pose and template
-        when it swaps the template.  The swap is reported through the
-        keyframe's metrics row, filled by :meth:`_finalize_map`."""
-        self.kfs, self.points, self.template, self.pose, diag = mapper.keyframe_step(
-            self.kfs, self.points, self.template, self.pose, feats,
-            matches.kp_of_point, res.inlier, self.K, self.dom,
-            self.bend_warp, self.bend_sfn, self.template_ref_kf, self.kf_counter,
-            self.frame_id, self.cfg, mark=self._kf_mark,
-        )
+    def _insert_keyframe(self, feats, matches, res, row: dict) -> None:
+        """CreateNewKeyFrame and the mapping step, reported through the
+        keyframe's metrics ``row`` when its diagnostics are read
+        (:meth:`_finalize_pending_map`).  Fused: one ``keyframe_step``,
+        which also re-anchors pose and template when it swaps the template.
+        Split (``tracking.split_keyframe_dispatch``, off while the GT
+        harness evaluates keyframe angles): half A now, half B dispatched
+        by the next tracked frame (:meth:`_dispatch_pending_kf_b`)."""
+        c = self.cfg
+        self._finalize_pending_map()
+        self._dispatch_pending_kf_b()  # a keyframe period of 1
+        # the GT harness evaluates the keyframe's normal angles whenever
+        # the NRSfM chain ran (estimateAngleErrorAndScale inside NRSfM,
+        # DefLocalMapping.cc:216-221), on the state right after the step
+        gt_angles = c.save_results and self._gt_eval is not None
+        if c.tracking.split_keyframe_dispatch and not gt_angles:
+            with profiling.stage("keyframe.dispatch_a"):
+                self.kfs, self.points, carry = mapper.keyframe_step_a(
+                    self.kfs, self.points, self.pose, feats, matches.kp_of_point, res.inlier,
+                    self.K, self.dom, self.bend_warp, self.template_ref_kf, self.frame_id, c,
+                    mark=self._kf_mark,
+                )
+            # B takes the counter before the increment (the culling window
+            # is keyed on it), and the gate copied right behind A: reading
+            # it then waits for A, not for the frame dispatched after A
+            self._pending_kf_b = (carry, Readback.start([carry.gate]), feats, row,
+                                  self.kf_counter)
+            self.kf_counter += 1
+            return
+        with profiling.stage("keyframe.dispatch"):
+            self.kfs, self.points, self.template, self.pose, diag = mapper.keyframe_step(
+                self.kfs, self.points, self.template, self.pose, feats,
+                matches.kp_of_point, res.inlier, self.K, self.dom,
+                self.bend_warp, self.bend_sfn, self.template_ref_kf, self.kf_counter,
+                self.frame_id, c, mark=self._kf_mark,
+            )
         self.kf_counter += 1
         self._record_template_history()
-        self._finalize_map(diag, len(self._metrics) - 1)
+        self._start_map_readback(diag, row, gt_angles)
+        if gt_angles or not c.tracking.pipelined:
+            self._finalize_pending_map()
+
+    def _dispatch_pending_kf_b(self):
+        """Dispatch half B of a split keyframe chain.  Called right after
+        the next frame's state is committed, so the stream runs [frame t]
+        [A][frame t+1][B][frame t+2] and no frame waits behind more than
+        half the chain.  Returns the state before B in the keyframe
+        snapshot's format (B leaves the stores it is given unchanged, so no
+        copy is needed): the frame between the halves consumed exactly
+        that state, and its rollback restores it.  None if nothing was
+        pending."""
+        if self._pending_kf_b is None:
+            return None
+        carry, gate, feats, row, kf_counter = self._pending_kf_b
+        self._pending_kf_b = None
+        b_backup = (self.kfs, self.kf_counter, self.template_ref_kf, len(self.template_history))
+        with profiling.stage("keyframe.dispatch_b"):
+            self.kfs, self.points, self.template, self.pose, diag, gauge = mapper.keyframe_step_b(
+                self.kfs, self.points, self.template, self.pose, feats, carry, self.K,
+                self.dom, self.bend_sfn, kf_counter, self.cfg, mark=self._kf_mark,
+                gate=bool(gate.get()[0]),
+            )
+        # a template swap changes the world's gauge; B moved the live pose
+        # by it (pose @ gauge): move the motion model alike, so the
+        # constant-velocity prediction survives the swap
+        self.prev_pose = self.prev_pose @ gauge
+        self._record_template_history()
+        self._start_map_readback(diag, row, False)
+        if not self.cfg.tracking.pipelined:
+            self._finalize_pending_map()
+        return b_backup
 
     def _record_template_history(self):
         """Keep the keyframe-time template for the mesh-history view
@@ -382,22 +621,34 @@ class System:
             self.template_history.append((self.frame_id, self.template.nodes.clone()))
             del self.template_history[:-TEMPLATE_HISTORY_CAP]
 
-    def _finalize_map(self, diag: mapper.MappingDiag, row: int):
-        """Read the keyframe step's scalars back (one host read), keep the
-        template bookkeeping, and fill the keyframe's metrics row.  With the
-        GT harness on, evaluate the keyframe's normal angles whenever the
-        NRSfM chain ran, swap or not (estimateAngleErrorAndScale inside
-        NRSfM, DefLocalMapping.cc:216-221)."""
-        vals = torch.stack([v.to(torch.float64) for v in diag]).tolist()
+    def _start_map_readback(self, diag: mapper.MappingDiag, row: dict, gt_angles: bool):
+        """Start the keyframe step's scalars for the host (one copy)."""
+        vals = torch.stack([v.to(torch.float64) for v in diag])
+        self._pending_map = (Readback.start([vals]), row, gt_angles)
+
+    def _finalize_pending_map(self, force: bool = True):
+        """Read the last keyframe step's scalars (``force=False``: only if
+        they have landed, never waiting), keep the template bookkeeping,
+        set ``last_map_diag``, and fill the keyframe's metrics row.  With
+        the GT harness's angles due, evaluate the keyframe's normal angles
+        when the NRSfM chain ran, swap or not.  Returns the host
+        MappingDiag, or None when nothing was read."""
+        if self._pending_map is None:
+            return None
+        readback, row, gt_angles = self._pending_map
+        if not force and not readback.ready():
+            return None
+        self._pending_map = None
+        (vals,) = readback.get()
         d = mapper.MappingDiag(*(
             bool(v) if f in ("accepted", "exploring") else
             float(v) if f == "reg_scale" else int(v)
-            for f, v in zip(mapper.MappingDiag._fields, vals)
+            for f, v in zip(mapper.MappingDiag._fields, vals.tolist())
         ))
         self.last_map_diag = d
         if d.accepted:
             self.template_ref_kf = d.kf_t
-        self._metrics[row].update(
+        row.update(
             template=d.accepted,
             map_obs_dropped=d.obs_dropped,
             map_pair_dropped=d.pair_dropped,
@@ -405,8 +656,7 @@ class System:
             points_culled=d.n_culled,
             reg_scale=d.reg_scale,
         )
-        if (self.cfg.save_results and self._gt_eval is not None
-                and d.n_pairs > 0 and d.n_norm >= self.cfg.mapping.min_normals):
+        if gt_angles and d.n_pairs > 0 and d.n_norm >= self.cfg.mapping.min_normals:
             self._gt_eval.evaluate_keyframe_angles(self, d.kf_t)
         return d
 
@@ -418,7 +668,9 @@ class System:
         ``meta``, ``metrics_json``, ``traj_*``, ``hist_*``, ``gt_rows``; its
         dtypes: uint32 descriptor words, int32 index fields), so either
         package loads the other's checkpoint.  The run history goes with the
-        map: a resumed run continues the metric streams."""
+        map: a resumed run continues the metric streams.  The pipeline is
+        flushed first."""
+        self.flush()
         arrays = {}
         parts = [("kf", self.kfs), ("pt", self.points)]
         if self.template is not None:
@@ -444,8 +696,9 @@ class System:
 
     def load_state(self, path: str):
         """Restore a checkpoint written by :meth:`save_state` of either
-        package, onto this System's device."""
+        package, onto this System's device; in-flight work is dropped."""
         dev = self.device
+        self._pending, self._pending_map, self._pending_kf_b = [], None, None
         with np.load(path) as data:
             def part(prefix, cls):
                 return cls(**{f: tensor_from_numpy(f, data[f"{prefix}_{f}"], dev)
@@ -482,15 +735,17 @@ class System:
     # ------------------------------------------------------------- metrics
 
     def _record(self, timestamp, n_matches, n_inliers, is_kf, tmpl,
-                n_local=0, n_dropped=0):
-        self._metrics.append(
-            dict(
-                frame=self.frame_id, t=timestamp, matches=n_matches,
-                inliers=n_inliers, keyframe=bool(is_kf),
-                template=bool(tmpl), state=self.state.name,
-                n_local=int(n_local), match_dropped=int(n_dropped),
-            )
+                n_local=0, n_dropped=0) -> dict:
+        """Append the frame's metrics row and return it (later readbacks
+        fill it in place)."""
+        row = dict(
+            frame=self.frame_id, t=timestamp, matches=n_matches,
+            inliers=n_inliers, keyframe=bool(is_kf),
+            template=bool(tmpl), state=self.state.name,
+            n_local=int(n_local), match_dropped=int(n_dropped),
         )
+        self._metrics.append(row)
+        return row
 
     def write_metrics(self, outdir: str | None = None):
         """The reference's tracking text streams (Tracking.cc:150-167), in
@@ -504,7 +759,10 @@ class System:
         - ``Trajectory.txt``: "timestamp" and the 16 entries of the pose;
         - with the GT harness on, ``ErrorGTs0.txt`` and
           ``ScaleVariation.txt`` (the per-keyframe ``ErrorAngIso*`` /
-          ``ErrorAngSfN*`` files are written as the keyframes come)."""
+          ``ErrorAngSfN*`` files are written as the keyframes come).
+
+        The pipeline is flushed first."""
+        self.flush()
         outdir = outdir or self.cfg.output_dir
         os.makedirs(outdir, exist_ok=True)
         n_points_valid = int(self.points.valid.sum())

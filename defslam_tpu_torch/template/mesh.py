@@ -14,6 +14,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from defslam_tpu_torch.utils import device_constant
+
 MAX_RING = 8  # max neighbors of a grid-with-diagonal node (interior: 6)
 
 
@@ -96,31 +98,32 @@ def grid_topology(nodes_u: int, nodes_v: int) -> MeshTopology:
     )
 
 
-def topo_tensor(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    """A topology constant on ``like``'s device (int arrays as int64)."""
-    if a.dtype.kind in "iu":
-        return torch.as_tensor(a.astype(np.int64), device=like.device)
-    return torch.as_tensor(a, device=like.device)
+def topo_tensor(topo: MeshTopology, field: str, like: torch.Tensor) -> torch.Tensor:
+    """The topology's array ``field`` on ``like``'s device (int arrays as
+    int64), copied there once per grid size and device."""
+    a = getattr(topo, field)
+    return device_constant(("topology", topo.nodes_u, topo.nodes_v, field), lambda: a,
+                           like.device, torch.int64 if a.dtype.kind in "iu" else None)
 
 
 def mean_value_weights(nodes: torch.Tensor, topo: MeshTopology) -> torch.Tensor:
     """Per-neighbor mean-value weights (M, MAX_RING):
     w_ij = (tan(|th1|/2) + tan(|th2|/2)) / |Ni - Nj| (LaplacianMesh.cc:96-115);
     entries without two common neighbors get 0."""
-    ring = topo_tensor(topo.ring, nodes)
+    ring = topo_tensor(topo, "ring", nodes)
     ni = nodes[:, None, :]
     e_j = nodes[ring] - ni
 
     def half_tan(other):
-        e_o = nodes[topo_tensor(other, nodes)] - ni
+        e_o = nodes[topo_tensor(topo, other, nodes)] - ni
         cross = torch.linalg.norm(torch.linalg.cross(e_o, e_j, dim=-1), dim=-1)
         dot = torch.sum(e_o * e_j, dim=-1)
         return torch.tan(0.5 * torch.atan2(cross, torch.abs(dot)))
 
-    w = (half_tan(topo.pair1) + half_tan(topo.pair2)) / torch.clamp(
+    w = (half_tan("pair1") + half_tan("pair2")) / torch.clamp(
         torch.linalg.norm(e_j, dim=-1), min=1e-12
     )
-    ok = topo_tensor(topo.pair_ok & topo.ring_mask, nodes)
+    ok = topo_tensor(topo, "pair_ok", nodes) & topo_tensor(topo, "ring_mask", nodes)
     return torch.where(ok, w, torch.zeros_like(w))
 
 
@@ -128,14 +131,14 @@ def weighted_laplacian(nodes: torch.Tensor, topo: MeshTopology, w: torch.Tensor)
     """delta_i = x_i - sum_j w_ij x_j / sum_j w_ij (LaplacianMesh.cc:119-147),
     zero on rows without weight."""
     sw = w.sum(dim=1)
-    zc = torch.einsum("mr,mrd->md", w, nodes[topo_tensor(topo.ring, nodes)]) / torch.clamp(
+    zc = torch.einsum("mr,mrd->md", w, nodes[topo_tensor(topo, "ring", nodes)]) / torch.clamp(
         sw, min=1e-12
     )[:, None]
     return torch.where((sw > 1e-12)[:, None], nodes - zc, torch.zeros_like(nodes))
 
 
 def edge_lengths(nodes: torch.Tensor, topo: MeshTopology) -> torch.Tensor:
-    e = topo_tensor(topo.edges, nodes)
+    e = topo_tensor(topo, "edges", nodes)
     d = nodes[e[:, 0]] - nodes[e[:, 1]]
     return torch.sqrt(torch.sum(d * d, dim=-1) + 1e-12)
 
@@ -155,9 +158,10 @@ def make_template(nodes: torch.Tensor, topo: MeshTopology) -> Template:
     w = mean_value_weights(nodes, topo)
     lap = weighted_laplacian(nodes, topo, w)
     rest_len = edge_lengths(nodes, topo)
-    ring_len = torch.linalg.norm(nodes[topo_tensor(topo.ring, nodes)] - nodes[:, None, :], dim=-1)
+    ring = topo_tensor(topo, "ring", nodes)
+    ring_len = torch.linalg.norm(nodes[ring] - nodes[:, None, :], dim=-1)
     inv_l2 = torch.where(
-        topo_tensor(topo.ring_mask, nodes), 1.0 / torch.clamp(ring_len, min=1e-12) ** 2,
+        topo_tensor(topo, "ring_mask", nodes), 1.0 / torch.clamp(ring_len, min=1e-12) ** 2,
         torch.zeros_like(ring_len),
     )
     return Template(
@@ -167,9 +171,9 @@ def make_template(nodes: torch.Tensor, topo: MeshTopology) -> Template:
         lap_rest=torch.linalg.norm(lap, dim=-1),
         lap_w=w,
         curv_scale=torch.sqrt(inv_l2.sum(dim=1)),
-        interior=~topo_tensor(topo.boundary, nodes),
+        interior=~topo_tensor(topo, "boundary", nodes),
         mean_edge=_median(rest_len),
-        valid=torch.tensor(True, device=nodes.device),
+        valid=torch.ones((), dtype=torch.bool, device=nodes.device),
     )
 
 
@@ -200,7 +204,7 @@ def facet_positions(nodes: torch.Tensor, topo: MeshTopology, facet: torch.Tensor
                     bary: torch.Tensor) -> torch.Tensor:
     """Barycentric reconstruction (DefMapPoint::RecalculatePosition):
     (P,) facet ids + (P, 3) weights -> (P, 3) positions."""
-    f = topo_tensor(topo.faces, nodes)[torch.clamp(facet, 0, len(topo.faces) - 1)]
+    f = topo_tensor(topo, "faces", nodes)[torch.clamp(facet, 0, len(topo.faces) - 1)]
     return torch.einsum("pk,pkd->pd", bary, nodes[f])
 
 

@@ -103,7 +103,7 @@ def _div(num: float, den: torch.Tensor) -> torch.Tensor:
 
 
 def _blend(obs_face, obs_bary, topo: meshmod.MeshTopology, m: int):
-    faces = meshmod.topo_tensor(topo.faces, obs_bary)
+    faces = meshmod.topo_tensor(topo, "faces", obs_bary)
     fcorners = faces[torch.clamp(obs_face, 0, topo.faces.shape[0] - 1)]
     bmat = torch.einsum("nk,nkm->nm", obs_bary, F.one_hot(fcorners, m).float())
     return fcorners, bmat
@@ -114,9 +114,9 @@ def _prepare(data: SfTData, topo: meshmod.MeshTopology, cfg: Config,
     reg = cfg.regularizer
     nodes0 = data.nodes0
     m = nodes0.shape[0]
-    ring = meshmod.topo_tensor(topo.ring, nodes0)
-    ring_mask = meshmod.topo_tensor(topo.ring_mask, nodes0)
-    edges = meshmod.topo_tensor(topo.edges, nodes0)
+    ring = meshmod.topo_tensor(topo, "ring", nodes0)
+    ring_mask = meshmod.topo_tensor(topo, "ring_mask", nodes0)
+    edges = meshmod.topo_tensor(topo, "edges", nodes0)
     fcorners, bmat = _blend(data.obs_face, data.obs_bary, topo, m)
     touched = torch.zeros(m, dtype=torch.int32, device=nodes0.device)
     touched.index_add_(
@@ -135,7 +135,7 @@ def _prepare(data: SfTData, topo: meshmod.MeshTopology, cfg: Config,
     edge_act = optlap[e0] | optlap[e1]
     n_edge = torch.clamp(edge_act.sum(), min=1).float()
     c_edge = torch.sqrt(_div(reg.inextensibility, n_edge)) * edge_act
-    c_temp = torch.sqrt(torch.tensor(reg_temp, dtype=torch.float32, device=nodes0.device)) / (
+    c_temp = torch.sqrt(torch.full((), reg_temp, dtype=torch.float32, device=nodes0.device)) / (
         torch.clamp(data.mean_edge, min=1e-9)
     )
     w_obs_base = torch.sqrt(
@@ -330,8 +330,8 @@ def _lm(data: SfTData, topo: meshmod.MeshTopology, cfg: Config, reg_temp: float,
     T, nodes = data.T0, data.nodes0
     cost = cost_at(T, nodes)
     dev = nodes.device
-    lam = torch.tensor(sc.lm_lambda_init, dtype=torch.float32, device=dev)
-    done = torch.tensor(False, device=dev)
+    lam = torch.full((), sc.lm_lambda_init, dtype=torch.float32, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
     for _ in range(iters):
         H_cc, H_cn, H_nn_o, g_c, g_n_o, _c = _obs_normal_eq_impl(
             T, nodes, data, pre, sc.huber_delta

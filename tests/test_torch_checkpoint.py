@@ -52,8 +52,13 @@ def seq():
     return make_sequence(n_frames=20, height=120, width=160, max_amp=0.05)
 
 
-def _port(cfg):
-    return System(config_from_dict(dataclasses.asdict(cfg)), device="cpu")
+def _port(cfg, pipelined: bool = True):
+    """The port's System; ``pipelined=False`` for the synchronous protocol,
+    where a continuation is compared right after its last call."""
+    tcfg = config_from_dict(dataclasses.asdict(cfg))
+    return System(dataclasses.replace(tcfg, tracking=dataclasses.replace(tcfg.tracking,
+                                                                         pipelined=pipelined)),
+                  device="cpu")
 
 
 def _store_fields(s):
@@ -136,7 +141,7 @@ def test_reference_checkpoint_continues_in_the_port(seq, tmp_path):
     ref = _continue(JaxSystem(cfg), [(t, seq.frames[t]) for t in range(6)], flush=True)
     ckpt = str(tmp_path / "jax.npz")
     ref.save_state(ckpt)
-    port = _port(cfg)
+    port = _port(cfg, pipelined=False)
     port.load_state(ckpt)
     with np.load(ckpt) as data:
         for key, v in _store_fields(port).items():
@@ -151,7 +156,7 @@ def test_reference_checkpoint_continues_in_the_port(seq, tmp_path):
 
 def test_port_checkpoint_continues_in_the_reference(seq, tmp_path):
     cfg = _cfg(seq.camera)
-    port = _continue(_port(cfg), [(t, seq.frames[t]) for t in range(6)])
+    port = _continue(_port(cfg, pipelined=False), [(t, seq.frames[t]) for t in range(6)])
     ckpt = str(tmp_path / "port.npz")
     port.save_state(ckpt)
     with np.load(ckpt) as data:

@@ -158,3 +158,53 @@ def test_keyframe_votes_launch_the_kernel_once(cuda_device):
     assert cuda_build.LAUNCHES["hamming_matrix"] == before + 1
     assert all(torch.equal(c.cpu(), r) for c, r in zip(card, cpu))
     assert int(cpu[0][1]) > 100 and int(cpu[0].sum()) == int(cpu[0][1])  # only slot 1 matches
+
+
+@pytest.mark.cuda
+def test_readback_on_the_card(cuda_device):
+    """``utils.Readback``: pinned copies behind the queued work, ready once
+    the event has passed, the values of the device tensors."""
+    from defslam_tpu_torch.utils import Readback
+
+    x = torch.arange(1000, dtype=torch.int32, device=cuda_device)
+    y = torch.randn(4, 4, device=cuda_device)
+    rb = Readback.start((x, y))
+    a, b = rb.get()
+    assert rb.ready()
+    assert np.array_equal(a, np.arange(1000)) and np.array_equal(b, y.cpu().numpy())
+
+
+def _small_pipelined_system(cuda_device, **tracking):
+    from defslam_tpu_torch.config import (
+        CapacityConfig, Config, OrbConfig, SfTConfig, TrackingConfig,
+    )
+    from defslam_tpu_torch.io.synthetic import make_sequence
+    from defslam_tpu_torch.system import System
+
+    seq = make_sequence(n_frames=8, height=120, width=160, max_amp=0.08)
+    cfg = Config(camera=seq.camera, orb=OrbConfig(n_features=300, n_levels=3, max_keypoints=384),
+                 sft=SfTConfig(lm_iterations=15),
+                 tracking=TrackingConfig(keyframe_period=100, **tracking),
+                 capacity=CapacityConfig(max_map_points=1024, max_keyframes=8))
+    frames = [torch.as_tensor(f, device=cuda_device) for f in seq.frames]
+    return System(cfg, device=cuda_device), frames
+
+
+@pytest.mark.cuda
+def test_pipelined_dispatch_makes_no_host_wait(cuda_device):
+    """A non-keyframe pipelined dispatch runs under
+    ``set_sync_debug_mode("error")``: nothing on it makes the host wait
+    for the card (the frame's readback waits on an event, later)."""
+    s, frames = _small_pipelined_system(cuda_device)
+    for t in range(5):
+        s.track_monocular(frames[t], float(t))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(5, 8):
+            pose = s.track_monocular(frames[t], float(t))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.is_tensor(pose) and pose.is_cuda
+    s.flush()
+    assert [m["state"] for m in s._metrics] == ["OK"] * 8 and s.n_rollbacks == 0

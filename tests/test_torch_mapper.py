@@ -651,7 +651,8 @@ def test_keyframe_step_without_pairs_skips_the_chain(cfgs):
     seq, cfg, tcfg = cfgs
     from defslam_tpu_torch.system import System
 
-    s = System(tcfg, device="cpu")
+    s = System(dataclasses.replace(tcfg, tracking=dataclasses.replace(tcfg.tracking, pipelined=False)),
+               device="cpu")  # the synchronous protocol: the diagnostics are read per keyframe
     s.track_monocular(seq.frames[0])
     s.kfs.valid[0] = False  # forget the initial keyframe
     stages = []

@@ -111,7 +111,10 @@ def mapped():
         js.track_monocular(seq.frames[t], float(t))
     js.flush()
     state = to_numpy_dict(kfs=js.kfs, points=js.points)
-    return seq, cfg, config_from_dict(dataclasses.asdict(cfg)), js, state
+    tcfg = config_from_dict(dataclasses.asdict(cfg))
+    # the port's runs here use the synchronous protocol: rows read right after each call
+    tcfg = dataclasses.replace(tcfg, tracking=dataclasses.replace(tcfg.tracking, pipelined=False))
+    return seq, cfg, tcfg, js, state
 
 
 def _reference_votes(feats, kfs, cfg):

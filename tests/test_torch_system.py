@@ -67,7 +67,13 @@ def cfgs(seq):
         tracking=TrackingConfig(keyframe_period=3),
         capacity=CapacityConfig(max_map_points=512, max_keyframes=8),
     )
-    return cfg, config_from_dict(dataclasses.asdict(cfg))
+    return cfg, _synchronous(config_from_dict(dataclasses.asdict(cfg)))
+
+
+def _synchronous(tcfg):
+    """The port's config with the synchronous protocol: these tests read
+    each frame's validated result right after its call."""
+    return dataclasses.replace(tcfg, tracking=dataclasses.replace(tcfg.tracking, pipelined=False))
 
 
 def _run_jax(cfg, frames, perturb=0.0):
@@ -192,7 +198,7 @@ def mapping_runs():
         mapping=MappingConfig(points_to_template=60, chi_limit=0.2),
     )
     ref = JaxSystem(cfg)
-    port = System(config_from_dict(dataclasses.asdict(cfg)), device="cpu")
+    port = System(_synchronous(config_from_dict(dataclasses.asdict(cfg))), device="cpu")
     for t, f in enumerate(seq.frames):
         ref.track_monocular(f, timestamp=float(t))
         port.track_monocular(f, timestamp=float(t))

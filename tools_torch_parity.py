@@ -166,6 +166,7 @@ def system_section():
         port.track_monocular(seq.frames[t], timestamp=float(t))
         if t == 0:
             port.activate_localization_mode()
+    port.flush()
     for i in range(8):
         Tj, Tp, Tt = (np.asarray(s.trajectory[i][1]) for s in (ref, probe, port))
         print(f"system frame {i}: inliers jax {ref._metrics[i]['inliers']} port "

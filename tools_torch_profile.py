@@ -1,7 +1,7 @@
 """Where a tracked frame's and a keyframe step's time goes on the card, for
 the PyTorch port.
 
-    python3 tools_torch_profile.py [--frames 3] [--keyframe | --relocalize]
+    python3 tools_torch_profile.py [--frames 3] [--keyframe | --relocalize | --pipelined]
 
 Tracks the first frames of the same sequence as chip_smoke.py (the JAX
 package's full-size bench render, default Config, localization mode) on
@@ -27,6 +27,16 @@ frame 1's features are relocalized against the 24 keyframe slots (the
 call the relocalization slice of chip_smoke.py makes).  Prints the call's
 wall time, device busy time and share, launches and top kernels, and
 writes them to ``chiprun_out/profile_relocalize.json``.
+
+These three run the synchronous protocol (``tracking.pipelined=False``).
+With ``--pipelined`` it runs the JAX package's bench configuration
+(chip_smoke.py's pipelined slice: depth 2, split keyframe dispatch) on the
+bench render uploaded to the card, and profiles ``--frames`` pipelined
+non-keyframe frames, then one split keyframe (the keyframe frame, which
+dispatches half A, and the next, which dispatches half B) through to a
+``flush``.  Per region: wall time, device busy time and share, kernel
+launches; per dispatch: its host time and its host waits on the card
+(``profiling.host_waits``).  Writes ``chiprun_out/profile_pipelined.json``.
 """
 
 from __future__ import annotations
@@ -40,7 +50,10 @@ import time
 
 import torch
 
-from defslam_tpu_torch.config import Config, SfTConfig
+from defslam_tpu_torch import profiling
+from defslam_tpu_torch.config import (
+    CapacityConfig, Config, OrbConfig, SfTConfig, TrackingConfig,
+)
 from defslam_tpu_torch.io.synthetic import make_sequence
 from defslam_tpu_torch.mapping import mapper
 from defslam_tpu_torch.ops import cuda_build
@@ -147,11 +160,56 @@ def _profiled(fn, smi: str):
     }, kernels
 
 
+def profile_pipelined(seq, frames: int, smi: str) -> dict:
+    """Pipelined frames and one split keyframe (see the module's docstring)."""
+    period = 10
+    cfg = Config(camera=seq.camera,
+                 orb=OrbConfig(n_features=1200, n_levels=6, max_keypoints=1536),
+                 sft=SfTConfig(lm_iterations=50),
+                 tracking=TrackingConfig(keyframe_period=period, pipeline_depth=2,
+                                         split_keyframe_dispatch=True),
+                 capacity=CapacityConfig(max_map_points=4096, max_keyframes=16))
+    imgs = [torch.as_tensor(f.astype("uint8"), device="cuda") for f in seq.frames]
+    sys_ = System(cfg)
+    first = 2 * period - frames  # the profiled plain frames end right before keyframe 2
+    for t in range(first):
+        sys_.track_monocular(imgs[t], timestamp=float(t))
+    sys_.flush()
+    torch.cuda.synchronize()
+
+    def region(ts):
+        rows = []
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t_all = time.perf_counter()
+            for t in ts:
+                t0 = time.perf_counter()
+                with profiling.host_waits() as w:
+                    sys_.track_monocular(imgs[t], timestamp=float(t))
+                rows.append({"frame": t, "host_ms": (time.perf_counter() - t0) * 1e3,
+                             "host_waits": sum(w.values()), "where": dict(w)})
+            sys_.flush()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t_all) * 1e3
+        kernels = _device_kernels(prof)
+        busy_ms = sum(_device_us(e) for e in kernels) / 1e3
+        return {"dispatches": rows, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                "device_busy_share": busy_ms / wall_ms,
+                "kernel_launches": sum(int(e.count) for e in kernels)}
+
+    plain = region(range(first, 2 * period))
+    split_kf = region(range(2 * period, 2 * period + 2))
+    return {"nvidia_smi": smi, "frames": frames, "plain_frames": plain,
+            "split_keyframe": split_kf,
+            "states": [m["state"] for m in sys_._metrics],
+            "template": [m["template"] for m in sys_._metrics]}
+
+
 def profile_relocalize(smi: str) -> dict:
     """One relocalization at full width (see the module's docstring)."""
     seq = make_sequence(n_frames=12, height=480, width=640, max_amp=0.08, camera_motion=0.35,
                         rotation_deg=20, deform_modes=3, brightness_drift=0.1)
-    cfg = Config(camera=seq.camera)
+    cfg = Config(camera=seq.camera, tracking=TrackingConfig(pipelined=False))
     sys_ = System(cfg)
     sys_.track_monocular(seq.frames[0], timestamp=0.0)
     feats = extract_features(torch.as_tensor(seq.frames[1], device=sys_.device), cfg)
@@ -172,6 +230,8 @@ def main() -> int:
                     help="profile one keyframe step instead of tracked frames")
     ap.add_argument("--relocalize", action="store_true",
                     help="profile one relocalization instead of tracked frames")
+    ap.add_argument("--pipelined", action="store_true",
+                    help="profile pipelined frames and a split keyframe (bench configuration)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("tools_torch_profile: no CUDA device", file=sys.stderr)
@@ -185,7 +245,14 @@ def main() -> int:
     seq = make_sequence(n_frames=24, height=480, width=640, max_amp=0.08,
                         camera_motion=0.35, rotation_deg=20, deform_modes=3,
                         brightness_drift=0.1)
-    cfg = Config(camera=seq.camera)
+    cfg = Config(camera=seq.camera, tracking=TrackingConfig(pipelined=False))
+    if args.pipelined:
+        out = profile_pipelined(seq, args.frames, smi)
+        print(json.dumps(out), flush=True)
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "profile_pipelined.json"), "w") as f:
+            json.dump(out, f, indent=1)
+        return 0
     if args.relocalize:
         out = profile_relocalize(smi)
         print(json.dumps(out), flush=True)
@@ -221,7 +288,8 @@ def main() -> int:
 
     img = torch.as_tensor(seq.frames[n - 1], device=sys_.device)
     full_ms = _sft_ms(sys_, img, cfg)
-    short_cfg = Config(camera=seq.camera, sft=SfTConfig(lm_iterations=1))
+    short_cfg = Config(camera=seq.camera, sft=SfTConfig(lm_iterations=1),
+                       tracking=TrackingConfig(pipelined=False))
     short_ms = _sft_ms(sys_, img, short_cfg)
     out = {
         "nvidia_smi": smi,

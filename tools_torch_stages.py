@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 import chip_smoke
-from defslam_tpu_torch.config import Config
+from defslam_tpu_torch.config import Config, TrackingConfig
 from defslam_tpu_torch.io.synthetic import make_sequence
 from defslam_tpu_torch.mapping import mapper
 from defslam_tpu_torch.ops import hamming, matching, windowed_match
@@ -65,7 +65,7 @@ def main() -> int:
     seq = make_sequence(n_frames=2 * chip_smoke.N_FRAMES, height=480, width=640, max_amp=0.08,
                         camera_motion=0.35, rotation_deg=20, deform_modes=3,
                         brightness_drift=0.1)
-    cfg = Config(camera=seq.camera)
+    cfg = Config(camera=seq.camera, tracking=TrackingConfig(pipelined=False))
     rng = np.random.default_rng(0)
     a, b = (torch.as_tensor(rng.integers(-2**31, 2**31, (k, 8)).astype(np.int32), device=dev)
             for k in (2048, 1536))
