@@ -64,7 +64,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
    max(2x, +0.02) of the fused run's.  Then two rollbacks at full width: a blank frame at a keyframe
    slot must end as the synchronous run, and a blank frame right after a
    split keyframe must be recovered with the stores consistent;
-11. print a ``timing`` line, one ``{"kernels": [...]}`` line, then the last
+11. the apps: the 24-frame bench render with a right view (baseline 0.05)
+   written as a DefSLAMGT-layout PNG dataset (``tools.make_synth_dataset``)
+   with the default Config's ORB settings, and ``cli.main(["stereo", ...])``
+   on the card in the default pipelined protocol, its readers decoding the
+   PNGs with the port's codec on their threads; the launches are counted
+   over that run.  Every frame must track, a keyframe swap the template,
+   B1 launch on every tracked frame and B2 twice per keyframe step, and the
+   six result files must equal those of the same decoded frames fed from
+   memory through ``System.track_monocular_gt`` (bit for bit, or, where the
+   card does not repeat itself, within the gap between two in-memory runs).
+   The stereo app again on the same frames re-encoded with costlier row
+   filters (left images as ``cv2.imwrite`` writes them where OpenCV is
+   installed, else Paeth; right images Paeth): its result files must equal
+   the first app run's under the same rule.  Then one frame's decode alone
+   in each encoding, and a Sub-filtered frame's unfiltering step through
+   both of the reader's paths.  The stereo app once more on frames 16-23 with a LEFT./RIGHT. calibration,
+   so that the readers remap: every frame must track.  Then the mono and ct
+   apps on the first 12 frames: from an MJPG video that OpenCV writes where
+   OpenCV is installed (the decode then runs on the card's host), else from
+   the rendered frames in ``load_video``'s place; ct reads depth text files.
+   It prints the readers' decode and remap ms, the prefetch wait and the
+   app's frame p50 beside the in-memory run's, and whether video decode ran;
+12. print a ``timing`` line, one ``{"kernels": [...]}`` line, then the last
    line ``{"ok": true, "device": {...}}``.
 
 Every phase before the pipelined slice runs the synchronous protocol
@@ -82,9 +104,11 @@ import math
 import os
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -1073,9 +1097,8 @@ def _same_rows(a: System, b: System, tol: float = 1e-6) -> tuple[bool, float]:
     return same and gap <= tol, gap
 
 
-def pipelined_slice(dev) -> dict:
-    """Phase 10 (see the module's docstring)."""
-    seq = make_sequence(n_frames=2 * N_FRAMES, **BENCH_MOTION)
+def pipelined_slice(seq, dev) -> dict:
+    """Phase 10 (see the module's docstring), on the 24-frame bench render."""
     frames = [torch.as_tensor(f.astype(np.uint8), device=dev) for f in seq.frames]
     torch.cuda.synchronize()
     modes = {"synchronous": dict(pipelined=False), "pipelined_fused": {},
@@ -1167,6 +1190,402 @@ def pipelined_rollbacks(seq, frames, dev) -> dict:
     return out
 
 
+APPS_BASELINE = 0.05
+APPS_VIDEO_FRAMES = 12  # the mono and ct apps' runs
+APPS_CALIBRATED_START = 16  # the calibrated stereo run: frames 16-23
+
+
+class AppProbe:
+    """While active, records the app's readers (``prefetch.FramePipeline``,
+    which ``cli`` builds through the module) and the start and end of each
+    ``System.track_monocular_gt`` call on the host clock."""
+
+    def __enter__(self):
+        from defslam_tpu_torch.io import prefetch
+
+        self.pipes, self.calls = [], []
+        self._prefetch, self._pipe, self._gt = prefetch, prefetch.FramePipeline, System.track_monocular_gt
+        probe = self
+
+        class Pipe(self._pipe):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                probe.pipes.append(self)
+
+        def track_gt(sys_, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = probe._gt(sys_, *args, **kwargs)
+            probe.calls.append((t0, time.perf_counter()))
+            return out
+
+        prefetch.FramePipeline = Pipe
+        System.track_monocular_gt = track_gt
+        return self
+
+    def __exit__(self, *exc):
+        self._prefetch.FramePipeline = self._pipe
+        System.track_monocular_gt = self._gt
+
+    def frame_ms(self) -> list[float]:
+        """Per tracked frame (the first initializes): the app loop's wall
+        time from one call's start to the next (the readers' wait, the
+        call, the progress line); the last frame's is its call."""
+        starts = [a for a, _ in self.calls] + [self.calls[-1][1]]
+        return [(b - a) * 1e3 for a, b in zip(starts[1:-1], starts[2:])]
+
+    def reader_stats(self) -> dict:
+        """Decode and remap ms per image (p50, max; decode also per side),
+        the seconds the loop waited for each frame's pair (p50, max), and
+        each frame's (left, right) decode and remap ms and wait."""
+        st = [x for p in self.pipes for x in p.stats]
+        left, right = self.pipes
+        wait = [a + b for a, b in zip(left.wait_s, right.wait_s)]
+
+        def p50_max(v):
+            return {"p50": statistics.median(v), "max": max(v)} if v else None
+
+        by_index = [{x["index"]: x for x in p.stats} for p in self.pipes]
+        per_frame = [{"frame": i, "wait_s": w,
+                      **{k: [side[i][k] for side in by_index] for k in ("decode_ms", "remap_ms")}}
+                     for i, w in enumerate(wait)]
+        return {"decode_ms": p50_max([x["decode_ms"] for x in st]),
+                "decode_ms_left_right": [p50_max([x["decode_ms"] for x in p.stats])
+                                         for p in self.pipes],
+                "remap_ms": p50_max([x["remap_ms"] for x in st]),
+                "prefetch_wait_s": p50_max(wait), "images": len(st), "per_frame": per_frame}
+
+
+def _calibration_yaml(settings: str, cam, path: str) -> str:
+    """The dataset's settings plus a LEFT./RIGHT. stereo calibration (the
+    reference's opencv-matrix keys): the camera's K, a mild lens distortion
+    and a 0.1 degree rectifying rotation per side."""
+    K = np.array([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1]])
+    text = open(settings).read()
+    for side, ang, D in (("LEFT", 0.1, [0.01, -0.005, 0.0005, -0.0005, 0.0]),
+                         ("RIGHT", -0.1, [-0.008, 0.004, -0.0004, 0.0004])):
+        c, s_ = math.cos(math.radians(ang)), math.sin(math.radians(ang))
+        mats = {"K": K, "D": np.array([D]), "R": np.array([[c, 0, s_], [0, 1, 0], [-s_, 0, c]]),
+                "P": np.hstack([K, np.zeros((3, 1))])}
+        for name, m in mats.items():
+            data = ", ".join(repr(float(v)) for v in m.ravel())
+            text += (f"{side}.{name}: !!opencv-matrix\n   rows: {m.shape[0]}\n"
+                     f"   cols: {m.shape[1]}\n   dt: d\n   data: [ {data} ]\n")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def _app_rows(outdir: str) -> list[list[str]]:
+    return _tokens(os.path.join(outdir, "Matches.txt"))
+
+
+def _check_same_files(what: str, other: str, gap: dict, repeat: dict | None) -> None:
+    """Each result file equal bit for bit, or, where two in-memory runs on
+    the card differ (``repeat``), within their gap."""
+    for name in RESULT_FILES:
+        g = gap[name]
+        ok = g["equal"] or (repeat is not None and not repeat[name]["equal"]
+                            and g["rows"][0] == g["rows"][1] and g["gap"] <= repeat[name]["gap"]
+                            and g["words"] <= repeat[name]["words"])
+        if not ok:
+            raise SystemExit(f"apps: {what}'s {name} differs from {other}'s "
+                             f"({g}; two in-memory runs: {repeat and repeat[name]})")
+
+
+def png_row_filters(path: str) -> dict:
+    """How many rows of the (grey) PNG at ``path`` use each filter type."""
+    from defslam_tpu_torch.io import png
+
+    with open(path, "rb") as fh:
+        chunks = list(png._chunks(fh.read()))
+    w, h = struct.unpack(">II", dict(chunks)[b"IHDR"][:8])
+    raw = zlib.decompress(b"".join(p for k, p in chunks if k == b"IDAT"))
+    kinds, counts = np.unique(np.frombuffer(raw, np.uint8).reshape(h, w + 1)[:, 0],
+                              return_counts=True)
+    return {int(k): int(c) for k, c in zip(kinds, counts)}
+
+
+def decode_alone(path: str, workdir: str, has_cv2: bool, reps: int = 5) -> dict:
+    """Median ms of ``png.read_png`` on this thread for the frame at
+    ``path`` re-encoded in each way, and of the unfiltering step alone for
+    a Sub-filtered copy through ``png._unfilter`` and through
+    ``png._unfilter_diagonal``."""
+    from defslam_tpu_torch.io import png
+
+    os.makedirs(workdir, exist_ok=True)
+    img = png.read_png(path)
+    h, w = img.shape
+    files = {"filter_none": path}
+    for name, ftype in (("filter_sub", 1), ("filter_paeth", 4)):
+        files[name] = os.path.join(workdir, f"{name}.png")
+        png.write_png(files[name], img, filter_type=ftype)
+    if has_cv2:
+        import cv2
+
+        files["cv2_imwrite"] = os.path.join(workdir, "cv2_imwrite.png")
+        cv2.imwrite(files["cv2_imwrite"], img)
+
+    def median_ms(fn) -> float:
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if not np.array_equal(out.reshape(h, w), img):
+                raise SystemExit("apps: a timed PNG decode disagrees with the frame")
+        return statistics.median(times)
+
+    out = {name: median_ms(lambda p=p: png.read_png(p)) for name, p in files.items()}
+    raw = np.empty((h, w + 1), np.uint8)
+    raw[:, 0] = 1
+    raw[:, 1:] = png._filter_rows(img, 1)
+    out["unfilter_sub_whole_image"] = median_ms(lambda: png._unfilter(raw.ravel(), h, w, 1))
+    out["unfilter_sub_diagonal"] = median_ms(
+        lambda: png._unfilter_diagonal(raw[:, 1:, None], raw[:, 0]))
+    shutil.rmtree(workdir)
+    return out
+
+
+def apps_phase(seq, dev) -> dict:
+    """Phase 11 (see the module's docstring), on ``seq``: the 24-frame
+    bench render with its right view."""
+    from defslam_tpu_torch import cli
+    from defslam_tpu_torch.io import datasets, png
+    from defslam_tpu_torch.tools import make_synth_dataset
+
+    root = os.path.join("chiprun_out", "apps")
+    shutil.rmtree(root, ignore_errors=True)
+    data = os.path.join(root, "seq")
+    t0 = time.perf_counter()
+    settings = make_synth_dataset.write_dataset(data, seq, APPS_BASELINE)
+    write_s = time.perf_counter() - t0
+    # the default Config's ORB settings; the results under <root>/app
+    text = open(settings).read()
+    text = text.replace("ORBextractor.nFeatures: 600", "ORBextractor.nFeatures: 1200")
+    text = text.replace("ORBextractor.nLevels: 4", "ORBextractor.nLevels: 8")
+    text = text.replace(f"File.outputdir: {os.path.join(data, 'out')}",
+                        f"File.outputdir: {os.path.join(root, 'app')}")
+    with open(settings, "w") as f:
+        f.write(text)
+    cfg = Config.from_yaml(settings)
+    assert (cfg.orb.n_features, cfg.orb.scale_factor, cfg.orb.n_levels) == (1200, 1.2, 8)
+    args = ["stereo", settings, data, "--start", "0", "--baseline", str(APPS_BASELINE)]
+
+    # ---- the stereo app, counted
+    torch.cuda.synchronize()
+    cuda_build.LAUNCHES.clear()
+    with AppProbe() as app:
+        rc = cli.main(args)
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
+    print(flush=True)
+    out_app = os.path.join(root, "app")
+    rows = _app_rows(out_app) if rc == 0 else []
+    n = len(seq.frames)
+    missing = [f for f in RESULT_FILES if not os.path.exists(os.path.join(out_app, f))]
+    n_kf = sum(r[3] == "1" for r in rows[1:])
+    n_swaps = sum(r[4] == "1" for r in rows[1:])
+    print("apps stereo rc", rc, "states", [r[-1] for r in rows], "keyframes", n_kf,
+          "swaps", n_swaps, "launches", launches, flush=True)
+    if rc != 0 or missing:
+        raise SystemExit(f"apps: the stereo app returned {rc}, result files missing: {missing}")
+    if len(rows) != n or any(r[-1] != TrackingState.OK.name for r in rows):
+        raise SystemExit(f"apps: not every frame of the stereo app tracked: {rows}")
+    if n_swaps < 1:
+        raise SystemExit("apps: no keyframe of the stereo app swapped the template")
+    if launches.get("hamming_matrix", 0) < n - 1 + n_swaps:
+        raise SystemExit(f"apps: hamming_matrix launched {launches.get('hamming_matrix', 0)} "
+                         f"times for {n - 1} tracked frames and {n_swaps} re-anchors")
+    if launches.get("windowed_match", 0) != 2 * n_kf:
+        raise SystemExit(f"apps: windowed_match launched {launches.get('windowed_match', 0)} "
+                         f"times in {n_kf} keyframe steps (2 each expected)")
+    reader = app.reader_stats()
+    app_frame_ms = app.frame_ms()
+    # ---- the same decoded frames from memory, through the System
+    lp, rp, ts = datasets.stereo_pair_paths(data)
+    pairs = [(png.read_png(a).astype(np.float32), png.read_png(b).astype(np.float32), t)
+             for a, b, t in zip(lp, rp, ts)]
+
+    def in_memory(outdir: str) -> list[float]:
+        s = System(dataclasses.replace(cfg, output_dir=outdir), device=dev)
+        call_ms = []
+        for left, right, t in pairs:
+            t0 = time.perf_counter()
+            s.track_monocular_gt(left, right, t, baseline=APPS_BASELINE)
+            call_ms.append((time.perf_counter() - t0) * 1e3)
+        s.write_metrics()
+        return call_ms[1:]
+
+    mem_ms = in_memory(os.path.join(root, "memory"))
+    gap = files_gap(out_app, os.path.join(root, "memory"))
+    repeat = None
+
+    def in_memory_repeat() -> dict:
+        """The gap between two in-memory runs on the card (run once, when a
+        comparison first finds a difference)."""
+        nonlocal repeat
+        if repeat is None:
+            in_memory(os.path.join(root, "memory_repeat"))
+            repeat = files_gap(os.path.join(root, "memory"), os.path.join(root, "memory_repeat"))
+        return repeat
+
+    if not all(v["equal"] for v in gap.values()):
+        in_memory_repeat()
+    print("apps stereo vs in-memory", json.dumps(gap), "repeat", json.dumps(repeat), flush=True)
+    _check_same_files("the stereo app", "the in-memory run", gap, repeat)
+
+    # ---- the stereo app on the same frames re-encoded with row filters that
+    # cost the reader more: left images as cv2.imwrite writes them (where
+    # OpenCV is installed, else Paeth), right images Paeth on every row
+    import importlib.util
+
+    has_cv2 = importlib.util.find_spec("cv2") is not None
+    filtered, t0 = os.path.join(root, "seq_filtered"), time.perf_counter()
+    shutil.copytree(data, filtered)
+    for side, paths in enumerate((lp, rp)):
+        for path in paths:
+            dst = os.path.join(filtered, os.path.basename(path))
+            img = png.read_png(path)
+            if side == 0 and has_cv2:
+                import cv2
+
+                cv2.imwrite(dst, img)
+            else:
+                png.write_png(dst, img, filter_type=4)
+            if not np.array_equal(png.read_png(dst), img):
+                raise SystemExit(f"apps: {dst} does not decode to the frame it was written from")
+    filtered_write_s = time.perf_counter() - t0
+    left_filters = png_row_filters(os.path.join(filtered, os.path.basename(lp[0])))
+    with open(settings) as f:
+        text = f.read().replace(f"File.outputdir: {os.path.join(root, 'app')}",
+                                f"File.outputdir: {os.path.join(root, 'filtered')}")
+    filtered_yaml = os.path.join(root, "filtered.yaml")
+    with open(filtered_yaml, "w") as f:
+        f.write(text)
+    with AppProbe() as app_f:
+        rc_f = cli.main(["stereo", filtered_yaml, filtered, "--start", "0",
+                         "--baseline", str(APPS_BASELINE)])
+    print(flush=True)
+    if rc_f != 0:
+        raise SystemExit(f"apps: the stereo app on the re-encoded frames returned {rc_f}")
+    gap_f = files_gap(out_app, os.path.join(root, "filtered"))
+    if not all(v["equal"] for v in gap_f.values()):
+        in_memory_repeat()
+    print("apps re-encoded (left filters", left_filters, ") vs the first app run",
+          json.dumps(gap_f), "repeat", json.dumps(repeat), flush=True)
+    _check_same_files("the stereo app on re-encoded frames", "the first app run", gap_f, repeat)
+    reader_f = app_f.reader_stats()
+    filtered_frame_ms = app_f.frame_ms()
+    shutil.rmtree(filtered)
+
+    # one frame's decode alone on this thread, as written (filter None), as
+    # cv2.imwrite writes it, and with Sub or Paeth on every row; and Sub's
+    # unfiltering step alone through the whole-image path and the
+    # anti-diagonal one
+    decode_alone_ms = decode_alone(lp[0], os.path.join(root, "decode"), has_cv2)
+    reader["decode_alone_ms"] = decode_alone_ms
+    print("apps decode alone", json.dumps(decode_alone_ms), flush=True)
+
+    # ---- the stereo app with a stereo calibration: the readers remap
+    calib = _calibration_yaml(settings, cfg.camera, os.path.join(root, "calibrated.yaml"))
+    with open(calib) as f:
+        text = f.read().replace(f"File.outputdir: {os.path.join(root, 'app')}",
+                                f"File.outputdir: {os.path.join(root, 'calibrated')}")
+    with open(calib, "w") as f:
+        f.write(text)
+    with AppProbe() as app_c:
+        rc_c = cli.main(["stereo", calib, data, "--start", str(APPS_CALIBRATED_START),
+                         "--baseline", str(APPS_BASELINE)])
+    print(flush=True)
+    rows_c = _app_rows(os.path.join(root, "calibrated"))
+    reader_c = app_c.reader_stats()
+    print("apps calibrated rc", rc_c, "states", [r[-1] for r in rows_c], "reader",
+          json.dumps(reader_c), flush=True)
+    if (rc_c != 0 or len(rows_c) != n - APPS_CALIBRATED_START
+            or any(r[-1] != TrackingState.OK.name for r in rows_c)):
+        raise SystemExit(f"apps: the calibrated stereo run did not track every frame: {rows_c}")
+    if not reader_c["remap_ms"] or reader_c["remap_ms"]["p50"] <= 0.0:
+        raise SystemExit("apps: the calibrated run's readers did not remap")
+
+    # ---- mono and ct: a real video where OpenCV is installed, else the
+    # rendered frames through load_video's place
+    frames = [np.clip(f, 0, 255).astype(np.uint8) for f in seq.frames[:APPS_VIDEO_FRAMES]]
+    video = os.path.join(root, "seq.avi")
+    depth_dir = os.path.join(root, "depth")
+    os.makedirs(depth_dir)
+    for t in range(APPS_VIDEO_FRAMES):
+        np.savetxt(os.path.join(depth_dir, f"heartDepthMap_{t}.txt"), seq.depths[t], fmt="%.5f")
+    real_load_video = datasets.load_video
+    decoded = None
+    if has_cv2:
+        import cv2
+
+        h, w = frames[0].shape
+        vw = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"MJPG"), 7.0, (w, h), isColor=False)
+        for f in frames:
+            vw.write(f)
+        vw.release()
+        decoded = len(list(datasets.load_video(video)))
+    else:
+        def rendered(_src):
+            for t, f in enumerate(frames):
+                yield f.astype(np.float32), t / 7.0
+
+        datasets.load_video = rendered
+    video_rows = {}
+    for mode, extra in (("mono", [video]), ("ct", [video, depth_dir])):
+        with open(settings) as f:
+            text = f.read().replace(f"File.outputdir: {os.path.join(root, 'app')}",
+                                    f"File.outputdir: {os.path.join(root, mode)}")
+        mode_yaml = os.path.join(root, f"{mode}.yaml")
+        with open(mode_yaml, "w") as f:
+            f.write(text)
+        cuda_build.LAUNCHES.clear()
+        rc_v = cli.main([mode, mode_yaml] + extra)
+        torch.cuda.synchronize()
+        print(flush=True)
+        video_rows[mode] = _app_rows(os.path.join(root, mode))
+        b1 = cuda_build.LAUNCHES["hamming_matrix"]
+        print(f"apps {mode} rc", rc_v, "states", [r[-1] for r in video_rows[mode]],
+              "launches", dict(cuda_build.LAUNCHES), flush=True)
+        if (rc_v != 0 or len(video_rows[mode]) != APPS_VIDEO_FRAMES
+                or any(r[-1] != TrackingState.OK.name for r in video_rows[mode])
+                or b1 < APPS_VIDEO_FRAMES - 1):
+            raise SystemExit(f"apps: the {mode} app did not track every frame through B1")
+    datasets.load_video = real_load_video
+    if has_cv2 and decoded != APPS_VIDEO_FRAMES:
+        raise SystemExit(f"apps: the video decoded to {decoded} frames, not {APPS_VIDEO_FRAMES}")
+    ct_gt = os.path.join(root, "ct", "ErrorGTs0.txt")
+    if not os.path.exists(ct_gt) or len(_tokens(ct_gt)) != APPS_VIDEO_FRAMES:
+        raise SystemExit("apps: the ct app wrote no ground-truth row per frame")
+    # the inputs are large: keep the results only
+    for d in (data, depth_dir):
+        shutil.rmtree(d)
+    if os.path.exists(video):
+        os.remove(video)
+    out = {"launches": launches, "rows": rows, "swaps": n_swaps, "keyframes": n_kf,
+           "files_vs_in_memory": gap, "in_memory_repeat": repeat,
+           "reader": reader, "reader_calibrated": reader_c,
+           "reencoded": {"left_row_filters": left_filters,
+                         "left_writer": "cv2.imwrite" if has_cv2 else "png paeth",
+                         "right_writer": "png paeth", "write_s": filtered_write_s,
+                         "files_vs_first_app": gap_f, "reader": reader_f,
+                         "app_frame_p50_ms": statistics.median(filtered_frame_ms),
+                         "app_frame_max_ms": max(filtered_frame_ms)},
+           "app_frame_p50_ms": statistics.median(app_frame_ms),
+           "app_frame_max_ms": max(app_frame_ms),
+           "in_memory_frame_p50_ms": statistics.median(mem_ms),
+           "in_memory_frame_max_ms": max(mem_ms),
+           "dataset_write_s": write_s, "cv2": has_cv2,
+           "video_decode_verified_on_gpu": bool(has_cv2 and decoded == APPS_VIDEO_FRAMES),
+           "mono_states": [r[-1] for r in video_rows["mono"]],
+           "ct_states": [r[-1] for r in video_rows["ct"]]}
+    print("apps", json.dumps({k: v for k, v in out.items() if k not in ("rows",)}), flush=True)
+    print(json.dumps({"video_decode_verified_on_gpu": out["video_decode_verified_on_gpu"]}),
+          flush=True)
+    return out
+
+
 def main(kernels_only: bool = False) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1200,8 +1619,10 @@ def main(kernels_only: bool = False) -> int:
     # frames; the mapping slice runs all 24.  The relocalization slice runs
     # a 12-frame render of the same motion, which moves twice as far per
     # frame: frame 1 then gets 24 matches and 2 inliers in both packages,
-    # and only relocalization recovers it.
-    seq = make_sequence(n_frames=2 * N_FRAMES, **BENCH_MOTION)
+    # and only relocalization recovers it.  One render serves every phase
+    # of this motion; its right view (the left frames are the same with
+    # or without it) is the apps phase's stereo dataset.
+    seq = make_sequence(n_frames=2 * N_FRAMES, baseline=APPS_BASELINE, **BENCH_MOTION)
     cfg = Config(camera=seq.camera, tracking=TrackingConfig(pipelined=False))
 
     rates = card_rates()
@@ -1268,8 +1689,10 @@ def main(kernels_only: bool = False) -> int:
     phase_done("occlusion_gt_checkpoint")
     stereo = stereo_check(cfg, seq, dev)
     phase_done("stereo_gt")
-    pipe = pipelined_slice(dev)
+    pipe = pipelined_slice(seq, dev)
     phase_done("pipelined_slice")
+    apps = apps_phase(seq, dev)
+    phase_done("apps")
     timing.update({
         "relocalize_ms": reloc["relocalize_ms"],
         "relocalize_call_ms": reloc["relocalize_call_ms"],
@@ -1281,12 +1704,15 @@ def main(kernels_only: bool = False) -> int:
         "load_state_ms": occl["load_state_ms"],
         "stereo_ncc_ms": stereo["ms"],
         "pipelined": pipe["stats"],
+        "apps": {k: apps[k] for k in ("reader", "reader_calibrated", "app_frame_p50_ms",
+                                      "app_frame_max_ms", "in_memory_frame_p50_ms",
+                                      "in_memory_frame_max_ms")},
     })
     print("timing", json.dumps(timing), flush=True)
 
     paths = {"tracking": launches_t, "mapping": launches_m,
              "relocalization": reloc["launches"], "occlusion_gt": occl["launches"],
-             "pipelined": pipe["launches"]}
+             "pipelined": pipe["launches"], "apps": apps["launches"]}
     for k, name in ((kern_h, "hamming_matrix"), (kern_w, "windowed_match")):
         k["launches_by_path"] = {p: counts.get(name, 0) for p, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -1317,7 +1743,7 @@ def main(kernels_only: bool = False) -> int:
     out = {"nvidia_smi": smi, "build_s": build_s, "kernels": kernels, "timing": timing,
            "frames": rows, "mapping_frames": map_rows, "mapping_diags": gpu_map.map_diags,
            "keyframe_card_vs_cpu": kf_row, "relocalization": reloc, "occlusion": occl,
-           "stereo_card_vs_cpu": stereo, "pipelined": pipe, "phase_s": phase_s}
+           "stereo_card_vs_cpu": stereo, "pipelined": pipe, "apps": apps, "phase_s": phase_s}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(out, f, indent=1)

@@ -1,26 +1,48 @@
-"""Command-line entry point of the port: the ``synth`` demo app.
+"""Command-line apps of the port: the reference's executables
+(``CMakeLists.txt:103-113``: DefSLAM, DefSLAMGT, DefSLAMGTCT) and a demo.
 
-    python -m defslam_tpu_torch.cli synth [--frames N] [--gt] [--out DIR]
-                                          [--config FILE] [--device cuda|cpu]
-                                          [--tune FILE] [--step]
+    python -m defslam_tpu_torch.cli mono   <yaml> <video|camera-index>
+    python -m defslam_tpu_torch.cli stereo <yaml> <sequence-dir> [--start 200] [--baseline 0.1]
+    python -m defslam_tpu_torch.cli ct     <yaml> <video> <depth-dir>
+    python -m defslam_tpu_torch.cli synth  [--frames N] [--gt] [--out DIR] [--config FILE]
 
-Port of the ``synth`` mode of ``defslam_tpu/cli.py``: a synthetic deforming
-sequence (``io.synthetic.make_sequence``, 320x240) through the System, a
-progress line per frame, then the metrics files (``Matches.txt``,
+Every mode takes ``--device cuda|cpu`` (default ``cuda``), ``--tune FILE``
+and ``--step``.  Port of ``defslam_tpu/cli.py``:
+
+- ``mono``: a video file or camera through ``io.datasets.load_video``
+  (OpenCV's ``VideoCapture``) into ``System.track_monocular``.
+  ``--orbslam`` (the rigid ORB-SLAM2 comparison mode) raises: the rigid
+  system is not ported yet.
+- ``stereo``: a DefSLAMGT-layout directory of ``stereo_im_{l,r}_<usec>.png``
+  pairs, decoded (``io.png``, no OpenCV), rectified when the YAML carries a
+  ``LEFT.``/``RIGHT.`` calibration, on the threads of two
+  ``io.prefetch.FramePipeline`` readers, into
+  ``System.track_monocular_gt`` (stereo-NCC ground truth).
+- ``ct``: a video and per-frame depth text files
+  (``io.datasets.load_ct_sequence``) into ``System.track_monocular_ct``.
+- ``synth``: the synthetic deforming sequence (``io.synthetic``, 320x240);
+  ``--gt`` evaluates each frame against its depth map, ``--config`` reads
+  settings (the camera comes from the render).
+
+The yaml is a settings file of the reference's flat keys or of the nested
+schema (``Config.from_yaml``); its ``File.outputdir`` (``output_dir``) is
+where the results go.  No vocabulary file: relocalization matches against
+the stored keyframes' descriptors directly.
+
+Every mode ends alike: the metrics files (``Matches.txt``,
 ``StatusTracking.txt``, ``MapPointUsage.txt``, ``Trajectory.txt``; with
-``--gt`` also ``ErrorGTs0.txt``, ``ScaleVariation.txt`` and the keyframes'
-``ErrorAngIso*`` / ``ErrorAngSfN*``) and a snapshot (``template.obj``,
+ground truth also ``ErrorGTs0.txt``, ``ScaleVariation.txt`` and the
+keyframes' ``ErrorAngIso*`` / ``ErrorAngSfN*``), the stage-time report
+(with ``DEFSLAM_PROFILE=1``) and a snapshot (``template.obj``,
 ``template_rest.obj``, ``trajectory.txt`` in TUM format, the keyframe-time
-templates).  ``--config`` reads a YAML of settings (the camera comes from
-the render); ``--tune`` and ``--step`` are the reference viewer's live
+templates).  ``--tune`` and ``--step`` are the reference viewer's live
 regularizer sliders and its step-"Next" gating (DefViewer.cc:53-120,
-System.cc:328-333).  Runs on the CUDA card unless ``--device cpu``.
+System.cc:328-333).
 
 The System runs its default pipelined protocol: the progress line shows
 ``?`` for counts not yet validated, and the pipeline is drained every 30
 frames, every frame under ``--step`` / ``--tune`` (which want the
-validated state), and before the metrics files are written.  With
-``DEFSLAM_PROFILE=1`` a table of stage times ends the run.
+validated state), and before the metrics files are written.
 """
 
 from __future__ import annotations
@@ -32,10 +54,35 @@ import sys
 import time
 
 
-def main(argv=None) -> int:
+def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="defslam_tpu_torch")
+    common = argparse.ArgumentParser(add_help=False)
+    common.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    common.add_argument("--step", action="store_true",
+                        help="single-step mode: wait for Enter after every frame")
+    common.add_argument("--tune", metavar="FILE", default=None,
+                        help="poll FILE (YAML: reference keys like Regularizer.laplacian or "
+                             "dotted config paths) every frame and apply changed parameters")
     sub = p.add_subparsers(dest="mode", required=True)
-    sy = sub.add_parser("synth", help="synthetic demo sequence")
+
+    mono = sub.add_parser("mono", parents=[common], help="monocular video/camera (DefSLAM app)")
+    mono.add_argument("yaml")
+    mono.add_argument("source")
+    mono.add_argument("--orbslam", action="store_true",
+                      help="rigid ORB-SLAM2 comparison mode (not ported: raises)")
+
+    st = sub.add_parser("stereo", parents=[common], help="stereo GT sequence (DefSLAMGT app)")
+    st.add_argument("yaml")
+    st.add_argument("directory")
+    st.add_argument("--start", type=int, default=200)
+    st.add_argument("--baseline", type=float, default=0.1)
+
+    ct = sub.add_parser("ct", parents=[common], help="video + depth-map GT (DefSLAMGTCT app)")
+    ct.add_argument("yaml")
+    ct.add_argument("video")
+    ct.add_argument("depth_dir")
+
+    sy = sub.add_parser("synth", parents=[common], help="synthetic demo sequence")
     sy.add_argument("--frames", type=int, default=30)
     sy.add_argument("--out", default="./out")
     sy.add_argument("--gt", action="store_true",
@@ -44,36 +91,51 @@ def main(argv=None) -> int:
     sy.add_argument("--config", metavar="FILE", default=None,
                     help="YAML settings (nested schema or the reference's flat keys); "
                          "the camera comes from the render")
-    sy.add_argument("--device", default="cuda", help="torch device (default: cuda)")
-    sy.add_argument("--step", action="store_true",
-                    help="single-step mode: wait for Enter after every frame")
-    sy.add_argument("--tune", metavar="FILE", default=None,
-                    help="poll FILE (YAML: reference keys like Regularizer.laplacian or "
-                         "dotted config paths) every frame and apply changed parameters")
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None) -> int:
+    args = _parser().parse_args(argv)
 
     from defslam_tpu_torch import profiling
     from defslam_tpu_torch.config import Config
-    from defslam_tpu_torch.io.synthetic import make_sequence
+    from defslam_tpu_torch.io import datasets
     from defslam_tpu_torch.system import System
     from defslam_tpu_torch.viewer import export
 
     t_start = time.perf_counter()
-    seq = make_sequence(n_frames=args.frames, height=240, width=320)
-    base = Config.from_yaml(args.config) if args.config else Config()
-    cfg = dataclasses.replace(base, camera=seq.camera, output_dir=args.out, save_results=True)
+    if args.mode == "mono" and args.orbslam:
+        raise NotImplementedError(
+            "mono --orbslam: the rigid ORB-SLAM2 system (defslam_tpu/rigid) is not ported yet")
+    if args.mode == "synth":
+        from defslam_tpu_torch.io.synthetic import make_sequence
+
+        seq = make_sequence(n_frames=args.frames, height=240, width=320)
+        base = Config.from_yaml(args.config) if args.config else Config()
+        cfg = dataclasses.replace(base, camera=seq.camera, output_dir=args.out, save_results=True)
+    else:
+        cfg = Config.from_yaml(args.yaml)
     sys_ = System(cfg, device=args.device)
-    tuner = _TuneWatcher(args.tune) if args.tune else None
-    for t in range(args.frames):
-        if args.gt:
-            sys_.track_monocular_ct(seq.frames[t], seq.depths[t], float(t))
-        else:
-            sys_.track_monocular(seq.frames[t], float(t))
-        _progress(sys_, interactive=args.step or tuner is not None)
-        if tuner is not None:
-            tuner.poll(sys_)
-        if args.step:
-            input("\n[step] Enter for next frame... ")
+    loop = _Loop(sys_, args)
+
+    if args.mode == "synth":
+        for t in range(args.frames):
+            if args.gt:
+                sys_.track_monocular_ct(seq.frames[t], seq.depths[t], float(t))
+            else:
+                sys_.track_monocular(seq.frames[t], float(t))
+            loop.after_frame()
+    elif args.mode == "mono":
+        src = int(args.source) if args.source.isdigit() else args.source
+        for img, ts in datasets.load_video(src):
+            sys_.track_monocular(img, ts)
+            loop.after_frame()
+    elif args.mode == "stereo":
+        _stereo(sys_, args, loop)
+    else:  # ct
+        for img, depth, ts in datasets.load_ct_sequence(args.video, args.depth_dir):
+            sys_.track_monocular_ct(img, depth, ts)
+            loop.after_frame()
 
     sys_.write_metrics()  # drains the pipeline first
     profiling.print_report()  # nothing unless DEFSLAM_PROFILE=1
@@ -83,6 +145,45 @@ def main(argv=None) -> int:
     print(f"\nprocessed {n} frames in {dt:.1f}s ({n / dt:.2f} fps); "
           f"results in {os.path.abspath(sys_.cfg.output_dir)}")
     return 0
+
+
+def _stereo(sys_, args, loop: "_Loop") -> None:
+    """The DefSLAMGT loop: raw pairs are rectified when the YAML carries a
+    LEFT./RIGHT. stereo calibration (stereo_groundtruth.cc:56-94), else
+    the sequence is taken as rectified.  Decoding and rectification run on
+    the readers' threads, ahead of the tracking loop."""
+    from defslam_tpu_torch.config import load_raw_yaml
+    from defslam_tpu_torch.io import datasets, prefetch
+
+    w, h = sys_.cfg.camera.width, sys_.cfg.camera.height
+    maps = datasets.rectify_maps(load_raw_yaml(args.yaml), (w, h))
+    lp, rp, ts = datasets.stereo_pair_paths(args.directory, start=args.start)
+    pipe_l = prefetch.FramePipeline(lp, w, h, rectify_maps=maps["l"] if maps else None)
+    pipe_r = prefetch.FramePipeline(rp, w, h, rectify_maps=maps["r"] if maps else None)
+    try:
+        for (i, left), (_, right) in zip(pipe_l, pipe_r):
+            sys_.track_monocular_gt(left, right, ts[i], baseline=args.baseline)
+            loop.after_frame()
+    finally:
+        pipe_l.close()
+        pipe_r.close()
+
+
+class _Loop:
+    """What every app does after a frame: the progress line, the live
+    tuning file (``--tune``) and the step gate (``--step``)."""
+
+    def __init__(self, sys_, args):
+        self.sys_ = sys_
+        self.step = args.step
+        self.tuner = _TuneWatcher(args.tune) if args.tune else None
+
+    def after_frame(self) -> None:
+        _progress(self.sys_, interactive=self.step or self.tuner is not None)
+        if self.tuner is not None:
+            self.tuner.poll(self.sys_)
+        if self.step:
+            input("\n[step] Enter for next frame... ")
 
 
 def _progress(sys_, interactive: bool = False, every: int = 30) -> None:

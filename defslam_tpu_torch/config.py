@@ -12,7 +12,8 @@ shape derived from them.
 This is the PyTorch port's own copy of ``defslam_tpu/config.py`` (the port
 imports nothing of the JAX package).  ``yaml`` is imported only inside
 :func:`load_raw_yaml`, so the package imports without PyYAML installed.
-``parallel`` is not used by the port yet.
+``parallel.enabled`` makes ``System`` raise ``NotImplementedError``: the
+multi-device path is not ported yet.
 """
 
 from __future__ import annotations

@@ -49,6 +49,7 @@ that cuDNN would otherwise run in TF32.
 from __future__ import annotations
 
 import enum
+import importlib.util
 import json
 import os
 from dataclasses import dataclass
@@ -98,7 +99,6 @@ class _InFlight(NamedTuple):
     img: torch.Tensor
     out: tuple  # tracker.track_frame's outputs
     timestamp: float
-    frame_id: int
     backup: tuple  # (pose, prev_pose, template, points, frames_since_kf) before it
     row: int  # its metrics row
     kf_backup: tuple | None  # (kfs, kf_counter, template_ref_kf, len(template_history))
@@ -126,6 +126,12 @@ class System:
         if isinstance(cfg, str):
             cfg = Config.from_yaml(cfg)
         self.cfg = cfg or Config()
+        if self.cfg.parallel.enabled:
+            raise NotImplementedError(
+                "parallel.enabled: the multi-device path (defslam_tpu/parallel) is not ported")
+        if self.cfg.viewer.save_frames and importlib.util.find_spec("matplotlib") is None:
+            raise ImportError("viewer.save_frames draws the frames with matplotlib, "
+                              "which is not installed")
         self.device = resolve_device(device)
         self._derive_constants()
         self._localization_only = False
@@ -432,8 +438,8 @@ class System:
             # state before B is what this frame consumed, so it is also
             # this frame's rollback snapshot of the keyframe store
             kf_backup = self._dispatch_pending_kf_b()
-        self._pending.append(_InFlight(img, out, timestamp, self.frame_id, backup,
-                                       len(self._metrics) - 1, kf_backup, readback))
+        self._pending.append(_InFlight(img, out, timestamp, backup, len(self._metrics) - 1,
+                                       kf_backup, readback))
         return FrameResult(res.T, TrackingState.OK, -1, -1, False, False)
 
     def _finalize_pending(self) -> bool:
@@ -449,6 +455,7 @@ class System:
             self.trajectory.append((f.timestamp, pose_h))
             self._metrics[f.row].update(matches=n_matches, inliers=n_inliers,
                                         n_local=int(stats_h[2]), match_dropped=int(stats_h[3]))
+            self._maybe_draw_frame(f.img, f.out[0], f.out[1])
             return True
         self.n_rollbacks += 1
         rest, self._pending = self._pending, []
@@ -465,18 +472,17 @@ class System:
                 self._pending_kf_b = None
                 break
         # the failed frame reuses its dispatch (made from exactly the backup
-        # state); the newer ones are tracked again.  Each takes its own
-        # frame id back for the replay, and its row is replaced in place.
-        newest = self.frame_id
+        # state); the newer ones are tracked again, and each row is replaced
+        # in place.  As in the JAX package, the replay runs under the newest
+        # frame id: it is what the replayed rows, a replayed keyframe's
+        # stored id and a drawn frame's file name carry.
         for e, out in [(f, f.out)] + [(e, None) for e in rest]:
-            self.frame_id = e.frame_id
             if out is None:
                 out = self._track_frame(e.img)
             n_rows = len(self._metrics)
             self._validate_and_commit(e.img, out, e.timestamp)
             if len(self._metrics) > n_rows:
                 self._metrics[e.row] = self._metrics.pop()
-        self.frame_id = newest
         return False
 
     @staticmethod
@@ -529,9 +535,22 @@ class System:
             # re-anchor the pose: a velocity spanning that gauge jump would
             # extrapolate garbage, so it is dropped for one frame
             self.prev_pose = self.pose
+        self._maybe_draw_frame(img, feats, matches)
         # as in the JAX package's fused path, the result reports the
         # template flag as False; the keyframe's metrics row carries it
         return FrameResult(pose_h, self.state, n_matches, n_inliers, is_kf, False)
+
+    def _maybe_draw_frame(self, img, feats, matches) -> None:
+        """DefFrameDrawer: with ``viewer.save_frames``, an annotated PNG of
+        the validated frame (a debugging mode: it reads the device).  As in
+        the JAX package, the file is named by the newest frame id and the
+        mesh drawn with the current pose, which under the pipelined
+        protocol are those of the frame being dispatched."""
+        if not self.cfg.viewer.save_frames:
+            return
+        from defslam_tpu_torch.viewer import frame_drawer
+
+        frame_drawer.save_annotated(self, img, feats, matches, self.frame_id)
 
     def _relocalize(self, img):
         """Relocalization against the stored keyframes before declaring LOST

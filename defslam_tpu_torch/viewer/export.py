@@ -1,11 +1,12 @@
 """Offline visualization exports.
 
-Port of ``defslam_tpu/viewer/export.py`` (the mesh and trajectory exports;
-the matplotlib render and the annotated frames are not ported yet).  The
-reference's Pangolin viewer (``Modules/Viewer/``) is an interactive debug
-tool; a headless host gets files instead: the template now and at rest as
-Wavefront OBJ, the trajectory in TUM format, and one OBJ per keyframe-time
-template (DefMapDrawer's history view).
+Port of ``defslam_tpu/viewer/export.py`` (the annotated frames are in
+``viewer/frame_drawer.py``).  The reference's Pangolin viewer
+(``Modules/Viewer/``) is an interactive debug tool; a headless host gets
+files instead: the template now and at rest as Wavefront OBJ, the
+trajectory in TUM format, one OBJ per keyframe-time template
+(DefMapDrawer's history view), and a matplotlib render of the map
+(:func:`render_png`; matplotlib is imported only there).
 """
 
 from __future__ import annotations
@@ -71,3 +72,25 @@ def export_template_history(system, outdir: str):
     for frame_id, nodes in system.template_history:
         export_mesh_obj(os.path.join(outdir, f"template_hist_{frame_id:06d}.obj"),
                         nodes, system.topo)
+
+
+def render_png(system, path: str):
+    """A matplotlib 3D render of the map: the template's wireframe, the
+    live map points, and the frame and state in the title."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig = plt.figure(figsize=(8, 6))
+    ax = fig.add_subplot(111, projection="3d")
+    if system.template is not None:
+        nodes = _numpy(system.template.nodes)
+        for a, b in np.asarray(system.topo.edges):
+            ax.plot(*zip(nodes[a], nodes[b]), "b-", lw=0.4)
+    pts = _numpy(system.points.xyz)
+    valid = _numpy(system.points.valid)
+    ax.scatter(pts[valid, 0], pts[valid, 1], pts[valid, 2], s=1, c="r")
+    ax.set_title(f"frame {system.frame_id} ({system.state.name})")
+    fig.savefig(path, dpi=110)
+    plt.close(fig)

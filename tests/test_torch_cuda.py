@@ -208,3 +208,34 @@ def test_pipelined_dispatch_makes_no_host_wait(cuda_device):
     assert torch.is_tensor(pose) and pose.is_cuda
     s.flush()
     assert [m["state"] for m in s._metrics] == ["OK"] * 8 and s.n_rollbacks == 0
+
+
+@pytest.mark.cuda
+def test_stereo_app_on_the_card_gives_the_cpu_run(cuda_device, tmp_path):
+    """The stereo app at 160x120 on ``cuda`` against the same app with
+    ``--device cpu``: Matches.txt rows alike (timestamps, states, keyframe
+    and template flags equal; counts within 2% or 1, the card-vs-CPU rule
+    of chip_smoke.py), and the Hamming kernel launched on the card."""
+    from defslam_tpu_torch import cli
+    from defslam_tpu_torch.tools import make_synth_dataset
+
+    data = tmp_path / "seq"
+    make_synth_dataset.main([str(data), "--frames", "8", "--width", "160", "--height", "120"])
+    settings = (data / "settings.yaml").read_text()
+    rows = {}
+    for device in ("cuda", "cpu"):
+        y = tmp_path / f"{device}.yaml"
+        y.write_text(settings.replace(str(data / "out"), str(tmp_path / device))
+                     + "ORBextractor.nFeatures: 300\n")
+        before = dict(cuda_build.LAUNCHES)
+        assert cli.main(["stereo", str(y), str(data), "--start", "0", "--device", device]) == 0
+        if device == "cuda":
+            assert cuda_build.LAUNCHES["hamming_matrix"] > before.get("hamming_matrix", 0)
+        rows[device] = [r.split() for r in (tmp_path / device / "Matches.txt").read_text()
+                        .splitlines()]
+    assert len(rows["cuda"]) == len(rows["cpu"]) == 8
+    for g, c in zip(rows["cuda"], rows["cpu"]):
+        assert g[0] == c[0] and g[3:] == c[3:], (g, c)
+        for k in (1, 2):
+            assert abs(int(g[k]) - int(c[k])) <= max(1, 0.02 * int(c[k])), (g, c)
+    assert all(r[-1] == "OK" for r in rows["cuda"])
