@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py             # every phase
     python3 chip_smoke.py --kernels   # phases 1-3 only (no ``ok`` line)
+    python3 chip_smoke.py --rigid     # phases 1-3 for B1, then phase 12 (no ``ok`` line)
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -86,7 +87,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the rendered frames in ``load_video``'s place; ct reads depth text files.
    It prints the readers' decode and remap ms, the prefetch wait and the
    app's frame p50 beside the in-memory run's, and whether video decode ran;
-12. print a ``timing`` line, one ``{"kernels": [...]}`` line, then the last
+12. the rigid ORB-SLAM2 mode (``rigid.system.RigidSystem``) at full width
+   (the default Config, a keyframe every 4 frames) on 24 frames of a static
+   render (camera_motion 0.5, seed 3): it must initialize within the first
+   8 frames, track every later frame, keep at least 3 keyframes and grow
+   the map past its initial points, and B1 must launch at (4096, 1536)
+   (every map point against the frame) on every tracked frame; the launches
+   are counted over that run.  The card runs it twice (does it repeat
+   itself?), the CPU once and once more with the map perturbed by 1e-7
+   after the initialization (the probe on the first 12 frames): states and
+   the initialization frame equal, point and keyframe counts within 2%,
+   poses within max(1e-3, 3x the probe's gap).  Then ``close_loop`` and
+   ``fuse_and_global_ba`` on a pre-loop world at full capacity (24 slots x
+   1536 keypoints, 4096 points) on the card and on the CPU: the same
+   candidate, the reprojection error at least halved, poses within 1e-3.
+   Then
+   ``cli.main(["mono", yaml, video, "--orbslam"])`` on 12 frames of an MJPG
+   video (where OpenCV is installed) must write ``Trajectory.txt``.
+   It prints the rigid frame p50 / max, initialization, local BA,
+   ``close_loop`` and global BA ms (CUDA events);
+13. print a ``timing`` line, one ``{"kernels": [...]}`` line, then the last
    line ``{"ok": true, "device": {...}}``.
 
 Every phase before the pipelined slice runs the synchronous protocol
@@ -119,7 +139,11 @@ from defslam_tpu_torch.io.synthetic import _gaussian_blur, make_sequence
 from defslam_tpu_torch.frontend import extract_features
 from defslam_tpu_torch.groundtruth import gt as gtmod
 from defslam_tpu_torch.mapping import mapper
+from defslam_tpu_torch.mapstore import state as store
 from defslam_tpu_torch.ops import cuda_build, hamming, matching, windowed_match
+from defslam_tpu_torch.rigid import loop_closing as rigid_loop
+from defslam_tpu_torch.rigid import triangulation as rigid_tri
+from defslam_tpu_torch.rigid.system import RigidSystem
 from defslam_tpu_torch.system import System, TrackingState
 from defslam_tpu_torch.tracking import pose_opt, tracker
 
@@ -127,8 +151,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 INT8_TENSOR_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate (no 1-bit rate is published)
 N_FRAMES = 12  # tracking slice; the mapping slice runs all 2 * N_FRAMES
 HAMMING_SHAPES = [(2048, 1536), (200, 333), (256, 128), (1, 1),
-                  (2049, 1537), (17, 9), (5, 4), (64, 1535)]
+                  (2049, 1537), (17, 9), (5, 4), (64, 1535), (4096, 1536)]
 RELOC_SHAPE = (1536, 24 * 1536)  # relocalization: the frame against all 24 keyframe slots
+RIGID_SHAPE = (4096, 1536)  # rigid tracking and fusion: every map point against a frame
 BENCH_MOTION = dict(height=480, width=640, max_amp=0.08, camera_motion=0.35, rotation_deg=20,
                     deform_modes=3, brightness_drift=0.1)
 PIPE_WARM = 12  # the pipelined slice: bench.py's 12 warm-up frames, then 12 measured
@@ -230,14 +255,6 @@ def card_rates() -> dict:
             "instr_per_s": sms * 128 * mhz * 1e6, "popc_per_s": sms * 16 * mhz * 1e6}
 
 
-def unpack_bits(desc: torch.Tensor) -> torch.Tensor:
-    """(N, 8) int32 words -> (N, 256) float 0/1 bits (for the library
-    yardstick only)."""
-    shifts = torch.arange(32, device=desc.device, dtype=torch.int64)
-    words = desc.to(torch.int64) & 0xFFFFFFFF
-    return ((words[:, :, None] >> shifts) & 1).reshape(desc.shape[0], 256).float()
-
-
 def _words(rng, shape, dev) -> torch.Tensor:
     """Random 32-bit descriptor words as int32 (sign bit set in half)."""
     return torch.as_tensor(rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32),
@@ -274,7 +291,7 @@ def check_hamming(dev, rates: dict) -> dict:
         worst = max(worst, err)
     n, m = HAMMING_SHAPES[0]
     a, b = cases[f"{n}x{m}"]
-    ua, ub = unpack_bits(a), unpack_bits(b)
+    ua, ub = hamming.unpack_bits(a), hamming.unpack_bits(b)
     kernel_ms = cuda_ms(lambda: hamming.hamming_matrix(a, b))
     burst_ms = cuda_burst_ms(lambda: hamming.hamming_matrix(a, b))
     out = torch.empty((n, m), dtype=torch.int32, device=dev)
@@ -316,25 +333,24 @@ def check_hamming(dev, rates: dict) -> dict:
     }
 
 
-def hamming_at_relocalization(dev) -> dict:
-    """B1 at relocalization's shape, (1536, 8) x (36864, 8): exact against
-    the plain version; ``device_ms`` (graph of 20 launches; the 226 MB
-    output cannot stay in the L2), ``host_us``, the plain and library
-    times, and the bound (bytes: each input read once, the output written
-    once; operations: the 256-bit product of every pair at the int8
-    tensor rate)."""
-    rng = np.random.default_rng(24)
-    n, m = RELOC_SHAPE
+def hamming_at_shape(dev, shape, seed: int, what: str) -> dict:
+    """B1 at one path's shape (N, 8) x (M, 8): exact against the plain
+    version; ``device_ms`` (graph of 20 launches), ``host_us``, the plain
+    and library times, and the bound (bytes: each input read once, the
+    output written once; operations: the 256-bit product of every pair at
+    the int8 tensor rate)."""
+    rng = np.random.default_rng(seed)
+    n, m = shape
     a, b = _words(rng, (n, 8), dev), _words(rng, (m, 8), dev)
     out = torch.empty((n, m), dtype=torch.int32, device=dev)
     device_ms = cuda_graph_ms(lambda: hamming.hamming_matrix(a, b, out=out))
     ref = hamming.hamming_matrix_plain(a, b)
     if not torch.equal(out, ref):
-        raise SystemExit("hamming_matrix differs from its plain version at the relocalization shape")
+        raise SystemExit(f"hamming_matrix differs from its plain version at the {what} shape")
     err = int((out - ref).abs().max())
     del ref
     plain_ms = cuda_ms(lambda: hamming.hamming_matrix_plain(a, b), reps=3, warmup=1)
-    ua, ub = unpack_bits(a), unpack_bits(b)
+    ua, ub = hamming.unpack_bits(a), hamming.unpack_bits(b)
     library_ms = cuda_ms(lambda: torch.cdist(ua, ub, p=0), reps=5, warmup=1)
     t_bytes = 4 * (8 * n + 8 * m + n * m) / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * 256 * n * m / INT8_TENSOR_OPS_PER_S * 1e3
@@ -343,7 +359,7 @@ def hamming_at_relocalization(dev) -> dict:
            "host_us": host_us(lambda: hamming.hamming_matrix(a, b, out=out)),
            "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-    print("hamming_matrix at the relocalization shape", json.dumps(row), flush=True)
+    print(f"hamming_matrix at the {what} shape", json.dumps(row), flush=True)
     return row
 
 
@@ -425,7 +441,7 @@ def windowed_library(da, db, xa, xb, va, vb, radius, invalid):
     only; the port never calls it."""
     best, second = [], []
     for k in range(da.shape[0]):
-        d = torch.cdist(unpack_bits(da[k]), unpack_bits(db[k]), p=0)
+        d = torch.cdist(hamming.unpack_bits(da[k]), hamming.unpack_bits(db[k]), p=0)
         win = (xa[k][:, None, :] - xb[k][None, :, :]).abs().amax(dim=-1) <= radius
         d = torch.where(va[k][:, None] & vb[k][None, :] & win, d, float(invalid))
         top = torch.topk(d, min(2, d.shape[1]), dim=1, largest=False).values
@@ -1586,7 +1602,364 @@ def apps_phase(seq, dev) -> dict:
     return out
 
 
-def main(kernels_only: bool = False) -> int:
+# ---------------------------------------------------------------- rigid mode
+
+RIGID_MOTION = dict(height=480, width=640, max_amp=0.0, camera_motion=0.5, seed=3)
+RIGID_FRAMES = 24
+RIGID_VIDEO_FRAMES = 12  # the mono --orbslam app's run
+RIGID_PROBE = 1e-7
+RIGID_PROBE_FRAMES = 12  # the probe's depth: half the run, to keep the phase's time
+
+
+class CudaSpans:
+    """CUDA events around every call of some functions or methods (wrapped
+    in place until :meth:`restore`): milliseconds per call by label."""
+
+    def __init__(self):
+        self.calls: dict[str, list] = {}
+        self._undo = []
+
+    def wrap(self, owner, name: str, label: str) -> None:
+        orig = getattr(owner, name)
+
+        def timed(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig(*a, **k)
+            end.record()
+            self.calls.setdefault(label, []).append((start, end))
+            return out
+
+        setattr(owner, name, timed)
+        self._undo.append((owner, name, orig))
+
+    def restore(self) -> None:
+        for owner, name, orig in reversed(self._undo):
+            setattr(owner, name, orig)
+        self._undo = []
+
+    def ms(self) -> dict[str, list[float]]:
+        torch.cuda.synchronize()
+        return {k: [a.elapsed_time(b) for a, b in v] for k, v in self.calls.items()}
+
+
+class B1Shapes:
+    """Record the shape of every Hamming matrix the rigid path asks for
+    (wrapping the wrapper's name in the modules that call it)."""
+
+    def __init__(self):
+        self.shapes: list[tuple[int, int]] = []
+        self._undo = []
+        for mod in (matching, rigid_loop, pose_opt):
+            orig = mod.hamming_matrix
+
+            def rec(a, b, out=None, _orig=orig):
+                self.shapes.append((a.shape[0], b.shape[0]))
+                return _orig(a, b, out=out)
+
+            mod.hamming_matrix = rec
+            self._undo.append((mod, orig))
+
+    def restore(self) -> None:
+        for mod, orig in self._undo:
+            mod.hamming_matrix = orig
+
+
+def rigid_run(frames, cfg: Config, device, perturb: float = 0.0, shapes: B1Shapes | None = None):
+    """Track the frames with RigidSystem.  ``perturb`` scales the map
+    points by (1 + N(0, perturb)) right after the initialization (a probe
+    of the run's own sensitivity).  Returns (system, rows, frame_ms, the
+    B1 shapes of each frame)."""
+    s = RigidSystem(cfg, device=device)
+    rows, frame_ms, frame_shapes = [], [], []
+    for t, f in enumerate(frames):
+        n0 = len(shapes.shapes) if shapes else 0
+        t0 = time.perf_counter()
+        pose = s.track_monocular(f, float(t))
+        if s.device.type == "cuda":
+            torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        frame_shapes.append(shapes.shapes[n0:] if shapes else [])
+        if perturb and pose is not None and not any(r["pose"] is not None for r in rows):
+            noise = torch.as_tensor(np.random.default_rng(1).normal(0.0, perturb, s.points.xyz.shape),
+                                    dtype=torch.float32, device=s.device)
+            s.points = s.points._replace(xyz=s.points.xyz * (1.0 + noise))
+        rows.append({"state": s.state.name, "pose": pose, "points": int(s.points.valid.sum()),
+                     "keyframes": int(s.kfs.valid.sum()), "loops": s.loops_closed})
+    return s, rows, frame_ms, frame_shapes
+
+
+def rigid_loop_world(cfg: Config, device, n_pts: int = 1536, drift_step: float = 0.04, seed: int = 5):
+    """tests/test_rigid_system.py's pre-loop state at full capacity:
+    keyframes sweeping right and back near the start, the stored poses
+    drifted (pose 0 exact), keyframe 0 observing the true points and the
+    last keyframe DUPLICATE points triangulated from its drifted pose with
+    keyframe 0's descriptors; the keyframes between are pose nodes with
+    junk descriptors.  ``n_pts`` points each (keyframe slots x keypoints x
+    points: the Config's capacities).  Returns (kfs, points, T_true, X)."""
+    rng = np.random.default_rng(seed)
+    n_kf = cfg.capacity.max_keyframes
+    k_cap, p_cap = cfg.orb.max_keypoints, cfg.capacity.max_map_points
+    K = cfg.camera.K.astype(np.float64)
+    X = np.stack([rng.uniform(-0.8, 0.8, n_pts), rng.uniform(-0.6, 0.6, n_pts),
+                  rng.uniform(2.5, 3.5, n_pts)], axis=1).astype(np.float32)
+    desc = rng.integers(-2**31, 2**31, (n_pts, 8), dtype=np.int64).astype(np.int32)
+    xs = np.concatenate([np.linspace(0, 1.0, n_kf // 2), np.linspace(1.0, 0.05, n_kf - n_kf // 2)])
+    T_true = np.tile(np.eye(4, dtype=np.float32), (n_kf, 1, 1))
+    T_true[:, 0, 3] = -xs
+    T_drift = T_true.copy()
+    acc = np.zeros(3, np.float32)
+    for k in range(1, n_kf):
+        acc = acc + rng.normal(0, drift_step, 3).astype(np.float32)
+        T_drift[k, :3, 3] += acc
+
+    def project(Xc):
+        return np.stack([K[0, 0] * Xc[:, 0] / Xc[:, 2] + K[0, 2],
+                         K[1, 1] * Xc[:, 1] / Xc[:, 2] + K[1, 2]], -1).astype(np.float32)
+
+    xy = np.zeros((n_kf, k_cap, 2), np.float32)
+    dsc = np.zeros((n_kf, k_cap, 8), np.int32)
+    kpv = np.zeros((n_kf, k_cap), bool)
+    pid = np.full((n_kf, k_cap), -1, np.int64)
+    xy[0, :n_pts] = project(X @ T_true[0, :3, :3].T + T_true[0, :3, 3])
+    dsc[0, :n_pts] = desc
+    kpv[0, :n_pts] = True
+    pid[0, :n_pts] = np.arange(n_pts)
+    for k in range(1, n_kf - 1):
+        dsc[k, :n_pts] = rng.integers(-2**31, 2**31, (n_pts, 8), dtype=np.int64).astype(np.int32)
+        kpv[k, :n_pts] = True
+    x_cam = X @ T_true[-1, :3, :3].T + T_true[-1, :3, 3]
+    Rd, td = T_drift[-1, :3, :3], T_drift[-1, :3, 3]
+    X_dup = ((x_cam - td) @ Rd).astype(np.float32)  # T_drift^-1 applied to the true view
+    xy[-1, :n_pts] = project(x_cam)
+    dsc[-1, :n_pts] = desc
+    kpv[-1, :n_pts] = True
+    pid[-1, :n_pts] = n_pts + np.arange(n_pts)
+    xyz = np.zeros((p_cap, 3), np.float32)
+    xyz[:n_pts], xyz[n_pts:2 * n_pts] = X, X_dup
+    pdesc = np.zeros((p_cap, 8), np.int32)
+    pdesc[:n_pts] = pdesc[n_pts:2 * n_pts] = desc
+    pvalid = np.zeros(p_cap, bool)
+    pvalid[:2 * n_pts] = True
+    ref_kf = np.full(p_cap, -1, np.int64)
+    ref_kf[:n_pts], ref_kf[n_pts:2 * n_pts] = 0, n_kf - 1
+    put = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    kfs = store.empty_keyframes(cfg, device)._replace(
+        pose=put(T_drift), xy=put(xy), desc=put(dsc), kp_valid=put(kpv), point_id=put(pid),
+        frame_id=put(np.arange(n_kf, dtype=np.int64) * 10), valid=put(np.ones(n_kf, bool)))
+    points = store.empty_points(cfg, device)._replace(
+        xyz=put(xyz), desc=put(pdesc), valid=put(pvalid), ref_kf=put(ref_kf),
+        n_obs=put(pvalid.astype(np.int32)))
+    return kfs, points, T_true, X
+
+
+def mean_reproj(kfs, points, K: np.ndarray, slots) -> float:
+    """Mean pixel reprojection error of the slots' bound observations."""
+    errs = []
+    pid_all, xyz = kfs.point_id.cpu().numpy(), points.xyz.cpu().numpy()
+    for s in slots:
+        pid = pid_all[s]
+        sel = (pid >= 0) & kfs.kp_valid[s].cpu().numpy()
+        T = kfs.pose[s].cpu().numpy()
+        pc = xyz[pid[sel]] @ T[:3, :3].T + T[:3, 3]
+        uv = np.stack([K[0, 0] * pc[:, 0] / pc[:, 2] + K[0, 2], K[1, 1] * pc[:, 1] / pc[:, 2] + K[1, 2]], -1)
+        errs.append(np.linalg.norm(uv - kfs.xy[s].cpu().numpy()[sel], axis=1))
+    return float(np.mean(np.concatenate(errs)))
+
+
+def rigid_loop_phase(cfg: Config, dev) -> dict:
+    """``close_loop`` and ``fuse_and_global_ba`` on the full-capacity
+    pre-loop world, on the card and on the CPU: the same candidate, the
+    reprojection error at least halved by the fusion and global BA, poses
+    within 1e-3 of the CPU's (the tolerance tests/test_torch_rigid_system.py
+    holds the port to the JAX package by)."""
+    slot = cfg.capacity.max_keyframes - 1
+    K = cfg.camera.K.astype(np.float64)
+    out = {}
+    for device in (dev, "cpu"):
+        kfs, points, T_true, X = rigid_loop_world(cfg, device)
+        Kt = torch.as_tensor(cfg.camera.K, device=device)
+        sig2 = rigid_tri.level_sigma2(cfg.orb.n_levels, cfg.orb.scale_factor, device)
+        spans = CudaSpans() if device == dev else None
+        if spans:
+            cuda_build.LAUNCHES.clear()
+            spans.wrap(rigid_loop, "global_ba", "global_ba")
+        t0 = time.perf_counter()
+        closed, kfs_g, pts_g, cand = rigid_loop.close_loop(kfs, points, slot, Kt, cfg)
+        if spans:
+            torch.cuda.synchronize()
+        close_s = time.perf_counter() - t0
+        if not closed:
+            raise SystemExit(f"rigid loop: close_loop did not close on {device}")
+        err_graph = mean_reproj(kfs_g, pts_g, K, (0, slot))
+        t0 = time.perf_counter()
+        kfs_f, pts_f, n_fused = rigid_loop.fuse_and_global_ba(kfs_g, pts_g, slot, cand, Kt, sig2, cfg)
+        if spans:
+            torch.cuda.synchronize()
+        fuse_s = time.perf_counter() - t0
+        err_fused = mean_reproj(kfs_f, pts_f, K, (0, slot))
+        row = {"cand": cand, "n_fused": n_fused, "points_after": int(pts_f.valid.sum()),
+               "reproj_graph_px": err_graph, "reproj_fused_px": err_fused,
+               "close_loop_wall_ms": close_s * 1e3, "fuse_and_global_ba_wall_ms": fuse_s * 1e3,
+               "pose_drift_before": float(np.linalg.norm(kfs.pose[slot, :3, 3].cpu().numpy()
+                                                         - T_true[slot, :3, 3])),
+               "pose_drift_after": float(np.linalg.norm(kfs_f.pose[slot, :3, 3].cpu().numpy()
+                                                        - T_true[slot, :3, 3]))}
+        if spans:
+            spans.restore()
+            row["global_ba_ms"] = spans.ms()["global_ba"]
+            row["launches"] = dict(cuda_build.LAUNCHES)
+        if not err_fused < 0.5 * err_graph:
+            raise SystemExit(f"rigid loop on {device}: reprojection {err_graph} -> {err_fused}")
+        out["card" if device == dev else "cpu"] = row
+        out["poses_" + ("card" if device == dev else "cpu")] = kfs_f.pose.cpu().numpy()
+    g, c = out["card"], out["cpu"]
+    gap = float(np.abs(out.pop("poses_card") - out.pop("poses_cpu")).max())
+    out["pose_gap_card_vs_cpu"] = gap
+    print("rigid loop", json.dumps(out), flush=True)
+    if g["cand"] != c["cand"] or g["cand"] != 0:
+        raise SystemExit(f"rigid loop: candidates {g['cand']} (card) and {c['cand']} (CPU)")
+    if gap > 1e-3:
+        raise SystemExit(f"rigid loop: the card's poses are {gap} from the CPU's")
+    return out
+
+
+def rigid_cli(root: str, seq) -> dict:
+    """``cli.main(["mono", yaml, video, "--orbslam"])`` on the first 12
+    frames of the rigid render, from an MJPG video that OpenCV writes where
+    it is installed (else the frames through ``load_video``'s place)."""
+    import importlib.util
+
+    from defslam_tpu_torch import cli
+    from defslam_tpu_torch.io import datasets
+
+    frames = [np.clip(f, 0, 255).astype(np.uint8) for f in seq.frames[:RIGID_VIDEO_FRAMES]]
+    os.makedirs(root, exist_ok=True)
+    video = os.path.join(root, "rigid.avi")
+    c = seq.camera
+    yaml = os.path.join(root, "rigid.yaml")
+    with open(yaml, "w") as f:
+        f.write(f"Camera.fx: {c.fx}\nCamera.fy: {c.fy}\nCamera.cx: {c.cx}\nCamera.cy: {c.cy}\n"
+                f"Camera.width: {c.width}\nCamera.height: {c.height}\n"
+                f"File.outputdir: {os.path.join(root, 'out')}\n")
+    real = datasets.load_video
+    has_cv2 = importlib.util.find_spec("cv2") is not None
+    if has_cv2:
+        import cv2
+
+        vw = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"MJPG"), 7.0, (c.width, c.height),
+                             isColor=False)
+        for f in frames:
+            vw.write(f)
+        vw.release()
+    else:
+        datasets.load_video = lambda _src: ((f.astype(np.float32), t / 7.0) for t, f in enumerate(frames))
+    cuda_build.LAUNCHES.clear()
+    try:
+        rc = cli.main(["mono", yaml, video, "--orbslam"])
+    finally:
+        datasets.load_video = real
+    torch.cuda.synchronize()
+    rows = _tokens(os.path.join(root, "out", "Trajectory.txt"))
+    out = {"rc": rc, "trajectory_rows": len(rows), "video": has_cv2,
+           "launches": dict(cuda_build.LAUNCHES)}
+    print("\nrigid cli", json.dumps(out), flush=True)
+    if rc != 0 or len(rows) < RIGID_VIDEO_FRAMES - 2 or any(len(r) != 17 for r in rows):
+        raise SystemExit(f"rigid cli: mono --orbslam wrote {len(rows)} trajectory rows")
+    if os.path.exists(video):
+        os.remove(video)
+    return out
+
+
+def rigid_phase(dev) -> dict:
+    """Phase 12: the rigid ORB-SLAM2 mode at full width (the default
+    Config, a keyframe every 4 frames) on 24 frames of a static render
+    (camera_motion 0.5: the JAX package's RigidSystem initializes at frame
+    1 and tracks all 24 frames on the CPU), the card against the CPU and a
+    1e-7-perturbed CPU probe; then the loop closer at full capacity, then
+    ``mono --orbslam``."""
+    seq = make_sequence(n_frames=RIGID_FRAMES, **RIGID_MOTION)
+    cfg = Config(camera=seq.camera, tracking=TrackingConfig(keyframe_period=4))
+    frames = seq.frames
+    # warm the card's libraries (cuSOLVER, the LM's jvp) outside the counted
+    # run: the initialization's BA and a tracked frame
+    rigid_run(frames[:3], cfg, dev)
+    shapes = B1Shapes()
+    spans = CudaSpans()
+    spans.wrap(RigidSystem, "_try_initialize", "initialize")
+    spans.wrap(RigidSystem, "_local_ba", "local_ba")
+    spans.wrap(rigid_loop, "close_loop", "close_loop")
+    cuda_build.LAUNCHES.clear()
+    try:
+        gpu, rows, frame_ms, frame_shapes = rigid_run(frames, cfg, dev, shapes=shapes)
+        torch.cuda.synchronize()
+    finally:
+        shapes.restore()
+        spans.restore()
+    launches = dict(cuda_build.LAUNCHES)
+    span_ms = spans.ms()
+    states = [r["state"] for r in rows]
+    first = next((t for t, r in enumerate(rows) if r["pose"] is not None), None)
+    init_points = rows[first]["points"] if first is not None else 0
+    print("rigid states", states, "points", [r["points"] for r in rows],
+          "keyframes", [r["keyframes"] for r in rows], "launches", launches, flush=True)
+    if first is None or first > 7:
+        raise SystemExit(f"rigid: not initialized within the first 8 frames: {states}")
+    if any(s != "OK" for s in states[first:]):
+        raise SystemExit(f"rigid: not every frame after the initialization tracked: {states}")
+    if rows[-1]["keyframes"] < 3 or rows[-1]["points"] <= init_points:
+        raise SystemExit(f"rigid: the map did not grow: {rows[-1]}")
+    missing = [t for t in range(first + 1, len(frames)) if tuple(RIGID_SHAPE) not in frame_shapes[t]]
+    if missing:
+        raise SystemExit(f"rigid: no B1 launch at {RIGID_SHAPE} in frames {missing}")
+
+    # ---- does the card repeat itself?  Then the CPU's run and the probe
+    _, rep_rows, _, _ = rigid_run(frames, cfg, dev)
+    repeat_gap = max((float(np.abs(a["pose"] - b["pose"]).max()) for a, b in zip(rows, rep_rows)
+                      if a["pose"] is not None and b["pose"] is not None), default=0.0)
+    repeats = (repeat_gap == 0.0 and [(r["state"], r["points"], r["keyframes"]) for r in rows]
+               == [(r["state"], r["points"], r["keyframes"]) for r in rep_rows])
+    print("rigid: the card repeats its run bit for bit:", repeats, "gap", repeat_gap, flush=True)
+    _, cpu_rows, cpu_ms, _ = rigid_run(frames, cfg, "cpu")
+    _, probe_rows, _, _ = rigid_run(frames[:RIGID_PROBE_FRAMES], cfg, "cpu", perturb=RIGID_PROBE)
+    gaps, probe_gaps = [], []
+    for t, (g, c) in enumerate(zip(rows, cpu_rows)):
+        p = probe_rows[t] if t < len(probe_rows) else {"pose": None}
+        if g["state"] != c["state"] or (g["pose"] is None) != (c["pose"] is None):
+            raise SystemExit(f"rigid: card and CPU states differ: {states} / "
+                             f"{[r['state'] for r in cpu_rows]}")
+        for k in ("points", "keyframes"):
+            if abs(g[k] - c[k]) > 0.02 * c[k]:
+                raise SystemExit(f"rigid: {k} {g[k]} on the card, {c[k]} on the CPU")
+        if g["pose"] is not None:
+            gaps.append(float(np.abs(g["pose"] - c["pose"]).max()))
+            if p["pose"] is not None:
+                probe_gaps.append(float(np.abs(p["pose"] - c["pose"]).max()))
+    tol = max(1e-3, 3 * max(probe_gaps))
+    print("rigid card vs cpu: pose gaps", gaps, "probe gaps", probe_gaps, "tol", tol, flush=True)
+    if max(gaps) > tol:
+        raise SystemExit(f"rigid: the card's trajectory is {max(gaps)} from the CPU's (tol {tol})")
+    tracked = frame_ms[first + 1:]
+    out = {
+        "init_frame": first, "states": states, "points": [r["points"] for r in rows],
+        "keyframes": [r["keyframes"] for r in rows], "loops_closed": gpu.loops_closed,
+        "launches": launches, "b1_shapes_per_frame": [sorted(set(s)) for s in frame_shapes],
+        "frame_ms": frame_ms, "frame_p50_ms": statistics.median(tracked),
+        "frame_max_ms": max(tracked), "init_ms": span_ms["initialize"][-1],
+        "local_ba_ms": span_ms["local_ba"], "close_loop_ms": span_ms.get("close_loop", []),
+        "cpu_frame_ms": cpu_ms, "pose_gap_card_vs_cpu": gaps, "probe_gap": probe_gaps,
+        "pose_tolerance": tol, "card_repeats_bit_for_bit": repeats, "card_repeat_gap": repeat_gap,
+        "cpu_points": [r["points"] for r in cpu_rows], "cpu_keyframes": [r["keyframes"] for r in cpu_rows],
+    }
+    out["loop"] = rigid_loop_phase(cfg, dev)
+    out["cli"] = rigid_cli(os.path.join("chiprun_out", "rigid_cli"), seq)
+    print("rigid", json.dumps({k: v for k, v in out.items() if k not in ("b1_shapes_per_frame",)}),
+          flush=True)
+    return out
+
+
+def main(kernels_only: bool = False, rigid_only: bool = False) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1628,8 +2001,23 @@ def main(kernels_only: bool = False) -> int:
     rates = card_rates()
     print("card_rates", json.dumps(rates), flush=True)
     phase_done("build")
+    if rigid_only:
+        kern_h = check_hamming(dev, rates)
+        kern_h["rigid_shape"] = hamming_at_shape(dev, RIGID_SHAPE, 25, "rigid tracking")
+        phase_done("kernels")
+        torch.set_num_threads(max(1, os.cpu_count() or 1))
+        rigid = rigid_phase(dev)
+        phase_done("rigid")
+        print("phase_s", json.dumps(phase_s), flush=True)
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "chip_smoke_rigid.json"), "w") as f:
+            json.dump({"nvidia_smi": smi, "kernel": kern_h, "rigid": rigid, "phase_s": phase_s}, f,
+                      indent=1, default=str)
+        print(smi, flush=True)
+        return 0
     kern_h = check_hamming(dev, rates)
-    kern_h["relocalization_shape"] = hamming_at_relocalization(dev)
+    kern_h["relocalization_shape"] = hamming_at_shape(dev, RELOC_SHAPE, 24, "relocalization")
+    kern_h["rigid_shape"] = hamming_at_shape(dev, RIGID_SHAPE, 25, "rigid tracking")
     kern_w = check_windowed_match(cfg, dev, rates)
     phase_done("kernels")
     if kernels_only:
@@ -1693,6 +2081,8 @@ def main(kernels_only: bool = False) -> int:
     phase_done("pipelined_slice")
     apps = apps_phase(seq, dev)
     phase_done("apps")
+    rigid = rigid_phase(dev)
+    phase_done("rigid")
     timing.update({
         "relocalize_ms": reloc["relocalize_ms"],
         "relocalize_call_ms": reloc["relocalize_call_ms"],
@@ -1707,12 +2097,17 @@ def main(kernels_only: bool = False) -> int:
         "apps": {k: apps[k] for k in ("reader", "reader_calibrated", "app_frame_p50_ms",
                                       "app_frame_max_ms", "in_memory_frame_p50_ms",
                                       "in_memory_frame_max_ms")},
+        "rigid": {**{k: rigid[k] for k in ("frame_p50_ms", "frame_max_ms", "init_ms",
+                                           "local_ba_ms", "close_loop_ms")},
+                  "loop_close_loop_wall_ms": rigid["loop"]["card"]["close_loop_wall_ms"],
+                  "loop_global_ba_ms": rigid["loop"]["card"]["global_ba_ms"]},
     })
     print("timing", json.dumps(timing), flush=True)
 
     paths = {"tracking": launches_t, "mapping": launches_m,
              "relocalization": reloc["launches"], "occlusion_gt": occl["launches"],
-             "pipelined": pipe["launches"], "apps": apps["launches"]}
+             "pipelined": pipe["launches"], "apps": apps["launches"], "rigid": rigid["launches"],
+             "rigid_loop": rigid["loop"]["card"]["launches"], "rigid_cli": rigid["cli"]["launches"]}
     for k, name in ((kern_h, "hamming_matrix"), (kern_w, "windowed_match")):
         k["launches_by_path"] = {p: counts.get(name, 0) for p, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -1743,7 +2138,8 @@ def main(kernels_only: bool = False) -> int:
     out = {"nvidia_smi": smi, "build_s": build_s, "kernels": kernels, "timing": timing,
            "frames": rows, "mapping_frames": map_rows, "mapping_diags": gpu_map.map_diags,
            "keyframe_card_vs_cpu": kf_row, "relocalization": reloc, "occlusion": occl,
-           "stereo_card_vs_cpu": stereo, "pipelined": pipe, "apps": apps, "phase_s": phase_s}
+           "stereo_card_vs_cpu": stereo, "pipelined": pipe, "apps": apps, "rigid": rigid,
+           "phase_s": phase_s}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(out, f, indent=1)
@@ -1756,4 +2152,4 @@ def main(kernels_only: bool = False) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(kernels_only="--kernels" in sys.argv[1:]))
+    sys.exit(main(kernels_only="--kernels" in sys.argv[1:], rigid_only="--rigid" in sys.argv[1:]))

@@ -11,8 +11,9 @@ and ``--step``.  Port of ``defslam_tpu/cli.py``:
 
 - ``mono``: a video file or camera through ``io.datasets.load_video``
   (OpenCV's ``VideoCapture``) into ``System.track_monocular``.
-  ``--orbslam`` (the rigid ORB-SLAM2 comparison mode) raises: the rigid
-  system is not ported yet.
+  ``--orbslam``: the rigid ORB-SLAM2 comparison mode (the reference's
+  ``#define ORBSLAM`` build) on the same input, through
+  ``rigid.system.RigidSystem``; it writes ``Trajectory.txt`` only.
 - ``stereo``: a DefSLAMGT-layout directory of ``stereo_im_{l,r}_<usec>.png``
   pairs, decoded (``io.png``, no OpenCV), rectified when the YAML carries a
   ``LEFT.``/``RIGHT.`` calibration, on the threads of two
@@ -69,7 +70,7 @@ def _parser() -> argparse.ArgumentParser:
     mono.add_argument("yaml")
     mono.add_argument("source")
     mono.add_argument("--orbslam", action="store_true",
-                      help="rigid ORB-SLAM2 comparison mode (not ported: raises)")
+                      help="rigid ORB-SLAM2 comparison mode (writes Trajectory.txt)")
 
     st = sub.add_parser("stereo", parents=[common], help="stereo GT sequence (DefSLAMGT app)")
     st.add_argument("yaml")
@@ -105,8 +106,7 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     if args.mode == "mono" and args.orbslam:
-        raise NotImplementedError(
-            "mono --orbslam: the rigid ORB-SLAM2 system (defslam_tpu/rigid) is not ported yet")
+        return _orbslam(args, t_start)
     if args.mode == "synth":
         from defslam_tpu_torch.io.synthetic import make_sequence
 
@@ -144,6 +144,29 @@ def main(argv=None) -> int:
     dt = time.perf_counter() - t_start
     print(f"\nprocessed {n} frames in {dt:.1f}s ({n / dt:.2f} fps); "
           f"results in {os.path.abspath(sys_.cfg.output_dir)}")
+    return 0
+
+
+def _orbslam(args, t_start: float) -> int:
+    """The A/B baseline: the rigid ORB-SLAM2 pipeline (tracking,
+    triangulation, local BA, culling, loop closing) on the mono input."""
+    from defslam_tpu_torch.config import Config
+    from defslam_tpu_torch.io import datasets
+    from defslam_tpu_torch.rigid.system import RigidSystem
+
+    cfg = Config.from_yaml(args.yaml)
+    rsys = RigidSystem(cfg, device=args.device)
+    src = int(args.source) if args.source.isdigit() else args.source
+    n = 0
+    for img, ts in datasets.load_video(src):
+        rsys.track_monocular(img, ts)
+        n += 1
+        print(f"\rframe {n - 1:5d} [{rsys.state.name:>15s}]", end="", flush=True)
+    os.makedirs(cfg.output_dir, exist_ok=True)
+    rsys.write_trajectory(os.path.join(cfg.output_dir, "Trajectory.txt"))
+    dt = time.perf_counter() - t_start
+    print(f"\nprocessed {n} frames in {dt:.1f}s ({n / max(dt, 1e-9):.2f} fps); "
+          f"results in {cfg.output_dir}")
     return 0
 
 

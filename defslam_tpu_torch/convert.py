@@ -8,6 +8,12 @@ package's arrays) and build the port's structures, so a test can start both
 packages from the same state.  uint32 descriptor words are reinterpreted as int32 with the same
 bits; index fields become int64.  :func:`numpy_from_tensor` is the reverse
 rule, so the port writes the JAX package's dtypes (its checkpoints).
+
+The rigid mode's structures come across the same way (``init``,
+``ba_problem``, ``ba_result``, ``sim3``, ``loop``), and
+:func:`rigid_state_to_numpy` / :func:`load_rigid_state` carry a whole
+``RigidSystem``: its stores, pose, motion model and the host arrays of its
+bookkeeping.
 """
 
 from __future__ import annotations
@@ -23,6 +29,9 @@ from defslam_tpu_torch.mapping.mapper import CovisPairs, KFCarry
 from defslam_tpu_torch.mapping.normals import PairObs
 from defslam_tpu_torch.mapping.warp import DiffProps
 from defslam_tpu_torch.mapstore.state import KeyframeStore, PointStore
+from defslam_tpu_torch.rigid.ba import BAProblem, BAResult
+from defslam_tpu_torch.rigid.initializer import InitResult
+from defslam_tpu_torch.rigid.loop_closing import LoopCandidate, Sim3Estimate
 from defslam_tpu_torch.template.mesh import Template
 from defslam_tpu_torch.tracking.tracker import FrameMatches
 
@@ -31,6 +40,9 @@ _PARTS = {
     "points": PointStore, "kfs": KeyframeStore, "template": Template,
     "feats": Features, "matches": FrameMatches, "covis": CovisPairs,
     "diff_props": DiffProps, "pair_obs": PairObs, "carry": KFCarry,
+    # the rigid mode
+    "init": InitResult, "ba_problem": BAProblem, "ba_result": BAResult, "sim3": Sim3Estimate,
+    "loop": LoopCandidate,
 }
 
 # int32 fields of the JAX stores that the port holds as int64 indices
@@ -41,7 +53,13 @@ _INDEX_FIELDS = {
     "n_pairs", "n_pair_dropped", "n_pt_dropped",
     # KFCarry
     "slot", "kf_t",
+    # BAProblem, LoopCandidate
+    "pid", "kf", "match_idx",
 }
+
+# RigidSystem's host state besides its stores, pose and motion model
+_RIGID_HOST = ("frame_id", "frames_since_kf", "_n_kf_inserted", "loops_closed",
+               "_visible", "_found", "_born_kf")
 
 
 class MapState(NamedTuple):
@@ -56,6 +74,11 @@ class MapState(NamedTuple):
     diff_props: DiffProps | None = None
     pair_obs: PairObs | None = None
     carry: KFCarry | None = None
+    init: InitResult | None = None
+    ba_problem: BAProblem | None = None
+    ba_result: BAResult | None = None
+    sim3: Sim3Estimate | None = None
+    loop: LoopCandidate | None = None
 
 
 def config_from_dict(d: dict) -> Config:
@@ -120,3 +143,33 @@ def state_from_numpy(d: dict[str, np.ndarray], device) -> MapState:
     return MapState(
         pose=pose("pose"), prev_pose=pose("prev_pose"), **{n: part(n) for n in _PARTS}
     )
+
+
+def rigid_state_to_numpy(rsys) -> dict[str, np.ndarray]:
+    """A ``RigidSystem``'s state (of either package) as flat numpy arrays:
+    ``kfs.*``, ``points.*``, ``pose``, ``velocity`` and ``rigid.<name>``
+    for its state enum's value and host bookkeeping."""
+    d = to_numpy_dict(kfs=rsys.kfs, points=rsys.points)
+    d["pose"] = np.asarray(rsys.pose)
+    d["velocity"] = np.asarray(rsys.velocity)
+    d["rigid.state"] = np.asarray(rsys.state.value)
+    for name in _RIGID_HOST:
+        d[f"rigid.{name}"] = np.array(getattr(rsys, name), copy=True)
+    return d
+
+
+def load_rigid_state(rsys, d: dict) -> None:
+    """Set the port's ``RigidSystem`` to the state of
+    :func:`rigid_state_to_numpy`; the features of an unfinished
+    initialization are not carried."""
+    from defslam_tpu_torch.rigid.system import RigidState
+
+    st = state_from_numpy(d, rsys.device)
+    rsys.kfs, rsys.points = st.kfs, st.points
+    rsys.pose = st.pose
+    rsys.velocity = tensor_from_numpy("velocity", d["velocity"], rsys.device).float()
+    rsys.state = RigidState(int(d["rigid.state"]))
+    rsys._init_feats = None
+    for name in _RIGID_HOST:
+        v = np.asarray(d[f"rigid.{name}"])
+        setattr(rsys, name, v.copy() if v.ndim else int(v))

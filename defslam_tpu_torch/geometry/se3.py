@@ -1,6 +1,7 @@
 """SE(3) / SO(3) Lie-group operations on torch tensors.
 
-Port of ``defslam_tpu/geometry/se3.py`` (the subset the tracking path uses).
+Port of ``defslam_tpu/geometry/se3.py`` (the subset the tracking path and
+the rigid mode use).
 Poses are (..., 4, 4) float32 world->camera matrices; solvers optimize a
 6-vector increment applied on the left, ``T <- exp(delta) @ T``, ordered
 [rho(3), phi(3)].  Small-angle branches use ``torch.where`` on Taylor
@@ -52,6 +53,25 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     return _eye3(w, W.shape) + a[..., None, None] * W + b[..., None, None] * W2
 
 
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Logarithm SO(3) -> so(3): (..., 3, 3) -> (..., 3), valid away from
+    theta = pi.  theta = atan2(||v||, trace - 1) with the sqrt's input
+    replaced by 1 in the small branch (the safe-where pattern), so forward-
+    mode derivatives stay finite at theta = 0: essential-graph edges
+    between consecutive keyframes are near identity."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    v = torch.stack(
+        [R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0], R[..., 1, 0] - R[..., 0, 1]],
+        dim=-1,
+    )  # 2 sin(theta) * axis
+    v2 = torch.sum(v * v, dim=-1)
+    small = v2 < 1e-12
+    vnorm = torch.sqrt(torch.where(small, torch.ones_like(v2), v2))
+    theta = torch.atan2(vnorm, trace - 1.0)
+    scale = torch.where(small, 0.5 + v2 / 48.0, theta / vnorm)
+    return scale[..., None] * v
+
+
 def _rt_to_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     T = torch.zeros(R.shape[:-2] + (4, 4), dtype=R.dtype, device=R.device)
     T[..., :3, :3] = R
@@ -96,6 +116,18 @@ def transform(T: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     if p.ndim >= 2 and p.shape[-2] != 3:
         return torch.einsum("...ij,...nj->...ni", R, p) + t[..., None, :]
     return torch.einsum("...ij,...j->...i", R, p) + t
+
+
+def sim3_apply(s: torch.Tensor, R: torch.Tensor, t: torch.Tensor, p: torch.Tensor):
+    """p' = s * R @ p + t for points (..., N, 3)."""
+    return s[..., None, None] * torch.einsum("...ij,...nj->...ni", R, p) + t[..., None, :]
+
+
+def sim3_exp(xi: torch.Tensor):
+    """sim(3) tangent (..., 7) = [rho(3), phi(3), sigma] -> (s, R, t) by the
+    simple retraction s = exp(sigma), R = exp(phi), t = rho (a chart near
+    identity: the solvers take small steps)."""
+    return torch.exp(xi[..., 6]), so3_exp(xi[..., 3:6]), xi[..., :3]
 
 
 def horn_alignment(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor):

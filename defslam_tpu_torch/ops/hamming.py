@@ -26,16 +26,22 @@ def _popcount32(x: torch.Tensor) -> torch.Tensor:
     return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
 
 
+def unpack_bits(desc: torch.Tensor) -> torch.Tensor:
+    """(N, 8) words -> (N, 256) float32 0/1: bit i of word w at 32 w + i."""
+    shifts = torch.arange(32, device=desc.device, dtype=torch.int64)
+    words = desc.to(torch.int64) & 0xFFFFFFFF
+    return ((words[:, :, None] >> shifts) & 1).reshape(desc.shape[0], -1).to(torch.float32)
+
+
 def hamming_matrix_plain(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
-    """(N, 8) int32 x (M, 8) int32 -> (N, M) int32, in plain torch ops (one
-    (N, M) word plane at a time)."""
-    out = torch.zeros(
-        (desc_a.shape[0], desc_b.shape[0]), dtype=torch.int64, device=desc_a.device
-    )
-    for w in range(desc_a.shape[1]):
-        x = (desc_a[:, None, w] ^ desc_b[None, :, w]).to(torch.int64) & 0xFFFFFFFF
-        out += _popcount32(x)
-    return out.to(torch.int32)
+    """(N, 8) int32 x (M, 8) int32 -> (N, M) int32, in plain torch ops:
+    popc(a) + popc(b) - 2 popc(a & b), the last term one float32 product of
+    the unpacked 0/1 bit matrices.  Exact: every product is 0 or 1 and
+    every sum at most 256 (also where TF32 is allowed: 0 and 1 are exact in
+    it and it accumulates in float32)."""
+    ba, bb = unpack_bits(desc_a), unpack_bits(desc_b)
+    d = ba.sum(dim=1)[:, None] + bb.sum(dim=1)[None, :] - 2.0 * (ba @ bb.T)
+    return d.to(torch.int32)
 
 
 def _check(name: str, d: torch.Tensor) -> None:

@@ -18,7 +18,10 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
+
+from defslam_tpu_torch.utils import device_constant
 
 
 class LMResult(NamedTuple):
@@ -40,6 +43,18 @@ def huber_block_weights(r: torch.Tensor, block: int, delta: float,
     if mask is not None:
         w = w * mask.to(w.dtype)
     return torch.repeat_interleave(w, block, dim=-1)
+
+
+def forward_jacobian(residual: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor):
+    """(r (B, R), J (B, R, n)) of ``residual``, a map of lanes (L, n) -> (L,
+    R), at x (B, n), by one forward-mode ``jvp``: the n tangent directions
+    ride as n*B extra lanes (lane k*B + b is lane b with tangent e_k), the
+    role of ``jax.jacfwd``."""
+    b, n = x.shape
+    tangents = device_constant(("jvp_tangents", n, b), lambda: np.repeat(np.eye(n), b, axis=0),
+                               x.device, x.dtype)
+    r, jv = torch.func.jvp(residual, (x.repeat(n, 1),), (tangents,))
+    return r[:b], jv.reshape(n, b, -1).permute(1, 2, 0)
 
 
 def lm_solve(

@@ -90,20 +90,24 @@ def rotation_consistency(
     keep_bins: int = 3,
 ) -> Matches:
     """Keep only matches whose rotation offset falls in the top-k histogram
-    bins (the reference's CheckOrientation, ORBmatcher.cc:35-37)."""
-    valid = matches.idx >= 0
-    da = angle_a - angle_b[torch.clamp(matches.idx, 0, angle_b.shape[0] - 1)]
+    bins (the reference's CheckOrientation, ORBmatcher.cc:35-37).  Matches
+    (N,) into angle_b (M,), or (N, B) into angle_b (B, M): B sets matched
+    each on its own (``best_match``'s batched form)."""
+    idx = matches.idx.reshape(matches.idx.shape[0], -1)  # (N, B)
+    ab = angle_b.reshape(-1, angle_b.shape[-1])  # (B, M)
+    valid = idx >= 0
+    sets = torch.arange(ab.shape[0], device=idx.device)[None, :]
+    da = angle_a[:, None] - ab[sets, torch.clamp(idx, 0, ab.shape[1] - 1)]
     # divide by a tensor, not a Python scalar: a scalar divisor may be
     # turned into a multiply by its reciprocal, which rounds differently
     frac = torch.remainder(da / torch.full_like(da, 2.0 * math.pi), 1.0)
     bin_id = torch.clamp((frac * HISTO_BINS).to(torch.int64), 0, HISTO_BINS - 1)
-    hist = torch.zeros(HISTO_BINS, dtype=torch.int32, device=da.device)
-    hist.index_add_(0, bin_id, valid.to(torch.int32))
-    _, top_bins = stable_topk(hist, keep_bins)
-    in_top = (bin_id[:, None] == top_bins[None, :]).any(dim=1)
-    ok = valid & in_top
-    return Matches(idx=torch.where(ok, matches.idx, torch.full_like(matches.idx, -1)),
-                   dist=matches.dist)
+    hist = torch.zeros((ab.shape[0], HISTO_BINS), dtype=torch.int32, device=da.device)
+    hist.scatter_add_(1, bin_id.T, valid.T.to(torch.int32))
+    _, top_bins = stable_topk(hist, keep_bins)  # (B, k)
+    in_top = (bin_id.T[:, :, None] == top_bins[:, None, :]).any(dim=-1).T
+    keep = torch.where(valid & in_top, idx, torch.full_like(idx, -1))
+    return Matches(idx=keep.reshape(matches.idx.shape), dist=matches.dist)
 
 
 def window_mask(xy_a: torch.Tensor, xy_b: torch.Tensor, radius) -> torch.Tensor:

@@ -73,10 +73,8 @@ def solve_pose(K: torch.Tensor, T0: torch.Tensor, pts_w: torch.Tensor, obs_uv: t
         e2 = torch.sum((uv - obs_uv) ** 2, dim=-1) * inv_sigma2
         return torch.where(pc[..., 2] > 1e-6, e2, torch.full_like(e2, float("inf")))
 
-    # the 6 forward-mode directions ride as extra lanes: lane k*B + b is
-    # lane b with tangent e_k, so one jvp of a (6B)-lane residual gives
-    # every lane's Jacobian
-    tangents = torch.eye(6, dtype=T0.dtype, device=T0.device).repeat_interleave(b, dim=0)
+    # the 6 forward-mode directions ride as extra lanes (lm.forward_jacobian):
+    # lane k*B + b is lane b with tangent e_k
     pts6 = pts_w.repeat(6, 1, 1)
     T = T0
     m = mask.to(T0.dtype)
@@ -91,12 +89,9 @@ def solve_pose(K: torch.Tensor, T0: torch.Tensor, pts_w: torch.Tensor, obs_uv: t
             wz = torch.where(pc[..., 2] > 1e-6, w, torch.zeros_like(w))
             return ((uv - obs_uv) * wz[..., None]).reshape(6 * b, -1)
 
-        def residual_jac(xi, residual=residual):
-            r, jv = torch.func.jvp(residual, (xi.repeat(6, 1),), (tangents,))
-            return r[:b], jv.reshape(6, b, -1).permute(1, 2, 0)
-
         res = lm.lm_solve(
-            residual_jac, torch.zeros((b, 6), dtype=T0.dtype, device=T0.device),
+            lambda xi, residual=residual: lm.forward_jacobian(residual, xi),
+            torch.zeros((b, 6), dtype=T0.dtype, device=T0.device),
             num_iters=num_iters,
             weight_fn=lambda r: lm.huber_block_weights(r, 2, delta),
         )

@@ -1,8 +1,8 @@
 """Shared numerics helpers.
 
 Port of ``defslam_tpu/utils.py`` (``psd_solve``, ``masked_median``,
-``masked_mean``) plus the deterministic scatter rule the mapping chain
-needs: the JAX package scatters with repeated indices in several places,
+``masked_mean``; ``inv_nan`` for ``jnp.linalg.inv``) plus the
+deterministic scatter rule the mapping chain needs: the JAX package scatters with repeated indices in several places,
 and on its CPU backend the updates land in order, so the LAST writer of a
 destination wins.  ``index_put_`` with repeated indices is not
 deterministic on CUDA; :func:`last_writer` reproduces the in-order rule on
@@ -31,6 +31,14 @@ def psd_solve(A: torch.Tensor, b: torch.Tensor, jitter: float = 0.0) -> torch.Te
     x = x[..., 0] if vec else x
     ok = (info == 0).reshape(info.shape + (1,) * (x.ndim - info.ndim))
     return torch.where(ok, x, torch.full_like(x, float("nan")))
+
+
+def inv_nan(A: torch.Tensor) -> torch.Tensor:
+    """Inverse of (..., n, n) matrices, NaN where the factorization fails
+    (as ``jnp.linalg.inv`` gives it), never an exception and no host read
+    (``inv_ex``)."""
+    inv, info = torch.linalg.inv_ex(A)
+    return torch.where((info == 0)[..., None, None], inv, torch.full_like(inv, float("nan")))
 
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None) -> torch.Tensor:

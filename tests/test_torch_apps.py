@@ -242,9 +242,16 @@ def test_mono_app_matches_reference(tmp_path, monkeypatch, jax_yaml, draws):
     assert [c["path"] for c in draws["port"]] == [c["path"] for c in draws["jax"]]
 
 
-def test_mono_orbslam_and_parallel_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="rigid"):
-        cli.main(["mono", _port_yaml(tmp_path), "0", "--orbslam", "--device", "cpu"])
+def test_mono_orbslam_and_parallel_raise(tmp_path, monkeypatch):
+    """``mono --orbslam`` raised until the rigid mode was ported; it now
+    runs the port's RigidSystem and writes ``Trajectory.txt`` (held to the
+    JAX package in tests/test_torch_rigid_system.py).  ``parallel.enabled``
+    still raises."""
+    seq = make_sequence(n_frames=3, height=120, width=160, max_amp=0.0)
+    monkeypatch.setattr(datasets, "load_video",
+                        lambda _src: ((np.asarray(f), t / 7.0) for t, f in enumerate(seq.frames)))
+    assert cli.main(["mono", _port_yaml(tmp_path), "0", "--orbslam", "--device", "cpu"]) == 0
+    assert (tmp_path / "port" / "Trajectory.txt").exists()
     with pytest.raises(NotImplementedError, match="parallel"):
         System(Config(parallel=ParallelConfig(enabled=True)), device="cpu")
 

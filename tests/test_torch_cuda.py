@@ -239,3 +239,40 @@ def test_stereo_app_on_the_card_gives_the_cpu_run(cuda_device, tmp_path):
         for k in (1, 2):
             assert abs(int(g[k]) - int(c[k])) <= max(1, 0.02 * int(c[k])), (g, c)
     assert all(r[-1] == "OK" for r in rows["cuda"])
+
+
+@pytest.mark.cuda
+def test_rigid_system_on_the_card_gives_the_cpu_run(cuda_device):
+    """The rigid mode's run of tests/test_torch_rigid_system.py (320x240,
+    14 frames of a static scene) on ``cuda`` against ``device="cpu"``:
+    states and the initialization frame equal, keyframe counts equal,
+    point counts within 2% and poses within 1e-3 (a 1e-7 perturbation of
+    the map after the initialization moves the CPU run's pose 1.5e-4 by
+    frame 13), and the Hamming kernel launched on every tracked frame."""
+    from defslam_tpu_torch.config import CapacityConfig, Config, OrbConfig, TrackingConfig
+    from defslam_tpu_torch.io.synthetic import make_sequence
+    from defslam_tpu_torch.rigid.system import RigidSystem
+
+    seq = make_sequence(n_frames=14, height=240, width=320, max_amp=0.0, camera_motion=0.5, seed=3)
+    cfg = Config(camera=seq.camera, orb=OrbConfig(n_features=600, n_levels=4, max_keypoints=768),
+                 tracking=TrackingConfig(keyframe_period=4),
+                 capacity=CapacityConfig(max_map_points=2048, max_keyframes=8))
+    rows = {}
+    for device in ("cuda", "cpu"):
+        s = RigidSystem(cfg, device=device)
+        before = cuda_build.LAUNCHES.get("hamming_matrix", 0)
+        out = []
+        for t in range(14):
+            p = s.track_monocular(seq.frames[t], float(t))
+            out.append((s.state.name, p, int(s.points.valid.sum()), int(s.kfs.valid.sum())))
+        if device == "cuda":
+            tracked = sum(p is not None for _, p, _, _ in out) - 1
+            assert cuda_build.LAUNCHES["hamming_matrix"] - before >= tracked
+        rows[device] = out
+    for g, c in zip(rows["cuda"], rows["cpu"]):
+        assert g[0] == c[0] and g[3] == c[3]
+        assert (g[1] is None) == (c[1] is None)
+        if g[1] is not None:
+            assert np.abs(g[1] - c[1]).max() <= 1e-3
+        assert abs(g[2] - c[2]) <= 0.02 * c[2]
+    assert rows["cuda"][-1][0] == "OK"
