@@ -3,6 +3,7 @@
     python3 chip_smoke.py             # every phase
     python3 chip_smoke.py --kernels   # phases 1-3 only (no ``ok`` line)
     python3 chip_smoke.py --rigid     # phases 1-3 for B1, then phase 12 (no ``ok`` line)
+    python3 chip_smoke.py --parallel  # phases 1-3, then phase 13 (no ``ok`` line)
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -94,8 +95,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the map past its initial points, and B1 must launch at (4096, 1536)
    (every map point against the frame) on every tracked frame; the launches
    are counted over that run.  The card runs it twice (does it repeat
-   itself?), the CPU once and once more with the map perturbed by 1e-7
-   after the initialization (the probe on the first 12 frames): states and
+   itself?), the CPU on its first 12 frames, once as it is and once with
+   the map perturbed by 1e-7 after the initialization (the probe): states and
    the initialization frame equal, point and keyframe counts within 2%,
    poses within max(1e-3, 3x the probe's gap).  Then ``close_loop`` and
    ``fuse_and_global_ba`` on a pre-loop world at full capacity (24 slots x
@@ -106,7 +107,36 @@ Phases, in order; any failure exits non-zero and prints no result line:
    video (where OpenCV is installed) must write ``Trajectory.txt``.
    It prints the rigid frame p50 / max, initialization, local BA,
    ``close_loop`` and global BA ms (CUDA events);
-13. print a ``timing`` line, one ``{"kernels": [...]}`` line, then the last
+13. the multi-device path (``parallel.enabled``, ``torch.distributed``):
+   ``System`` at world 1 over NCCL on the 24 full-width frames of the
+   mapping slice's config (keyframes 10 and 20 through the legacy chain),
+   twice; every frame must track, B2 launch twice per keyframe and B1 on
+   every frame and re-anchor (the launches are counted over the first
+   run), the two runs be bit-equal, and no frame without a keyframe make
+   a host wait (``profiling.host_waits("error")``, second run).  Against
+   the mapping slice's single-device run: states, keyframe and template
+   flags equal, matches and inliers within max(1, 2%), the pose within
+   max(2e-2, 3x the gap a 1e-7 template perturbation opens in the
+   single-device run on the card, frames 0-10), the counts and the pose
+   through the first keyframe frame only: after a template swap the legacy
+   chain keeps another map, in the JAX package too (ROADMAP C).  The same
+   parallel run on the CPU over
+   gloo (12 frames, keyframe 10) under ``compare_runs``'s rules.  Then
+   the sharded solvers at world 1 (NCCL) and at world 2, two worker
+   processes sharing the card over gloo with CUDA tensors (NCCL puts no
+   two ranks on one device): the last frame's SfT problem (1536
+   observations, 100 nodes), keyframe 10's 8 warp pairs and its normal
+   problem over 4096 points, and a 16x16 template with 512 observations
+   (the Schur partition); the ranks bit-equal, world 2 within 1e-4 of
+   world 1 (pose, nodes, warps; Schur nodes 2e-4; the frame's SfT within
+   max(1e-4, 3x the gap a 1e-7 perturbation of its start opens), 99% of
+   the inlier gate, normals within 3e-3 where the covariance gate keeps
+   them.  It
+   prints the parallel frame p50 / max, the keyframe frames' ms, their
+   chain's and the chain-plus-re-anchor's CUDA-event ms, all-reduce calls
+   and bytes per frame, and the SfT's host ms at world 1 and 2.  Every
+   collective has a 180 s timeout;
+14. print a ``timing`` line, one ``{"kernels": [...]}`` line, then the last
    line ``{"ok": true, "device": {...}}``.
 
 Every phase before the pipelined slice runs the synchronous protocol
@@ -119,6 +149,7 @@ to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import json
 import math
 import os
@@ -133,19 +164,24 @@ import zlib
 import numpy as np
 import torch
 
-from defslam_tpu_torch import profiling
-from defslam_tpu_torch.config import CapacityConfig, Config, OrbConfig, SfTConfig, TrackingConfig
+from defslam_tpu_torch import parallel, profiling
+from defslam_tpu_torch.config import (CapacityConfig, Config, MeshConfig, OrbConfig,
+                                      ParallelConfig, SfTConfig, TrackingConfig)
 from defslam_tpu_torch.io.synthetic import _gaussian_blur, make_sequence
 from defslam_tpu_torch.frontend import extract_features
+from defslam_tpu_torch.geometry import camera as cam
 from defslam_tpu_torch.groundtruth import gt as gtmod
 from defslam_tpu_torch.mapping import mapper
+from defslam_tpu_torch.mapping import normals as nrm
 from defslam_tpu_torch.mapstore import state as store
 from defslam_tpu_torch.ops import cuda_build, hamming, matching, windowed_match
+from defslam_tpu_torch.parallel import sharded
 from defslam_tpu_torch.rigid import loop_closing as rigid_loop
 from defslam_tpu_torch.rigid import triangulation as rigid_tri
 from defslam_tpu_torch.rigid.system import RigidSystem
 from defslam_tpu_torch.system import System, TrackingState
-from defslam_tpu_torch.tracking import pose_opt, tracker
+from defslam_tpu_torch.template import mesh as meshmod
+from defslam_tpu_torch.tracking import pose_opt, sft, tracker
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 INT8_TENSOR_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate (no 1-bit rate is published)
@@ -1608,7 +1644,8 @@ RIGID_MOTION = dict(height=480, width=640, max_amp=0.0, camera_motion=0.5, seed=
 RIGID_FRAMES = 24
 RIGID_VIDEO_FRAMES = 12  # the mono --orbslam app's run
 RIGID_PROBE = 1e-7
-RIGID_PROBE_FRAMES = 12  # the probe's depth: half the run, to keep the phase's time
+# the CPU run's and the probe's depth: half the run, to keep the phase's time
+RIGID_PROBE_FRAMES = 12
 
 
 class CudaSpans:
@@ -1921,7 +1958,7 @@ def rigid_phase(dev) -> dict:
     repeats = (repeat_gap == 0.0 and [(r["state"], r["points"], r["keyframes"]) for r in rows]
                == [(r["state"], r["points"], r["keyframes"]) for r in rep_rows])
     print("rigid: the card repeats its run bit for bit:", repeats, "gap", repeat_gap, flush=True)
-    _, cpu_rows, cpu_ms, _ = rigid_run(frames, cfg, "cpu")
+    _, cpu_rows, cpu_ms, _ = rigid_run(frames[:RIGID_PROBE_FRAMES], cfg, "cpu")
     _, probe_rows, _, _ = rigid_run(frames[:RIGID_PROBE_FRAMES], cfg, "cpu", perturb=RIGID_PROBE)
     gaps, probe_gaps = [], []
     for t, (g, c) in enumerate(zip(rows, cpu_rows)):
@@ -1959,7 +1996,417 @@ def rigid_phase(dev) -> dict:
     return out
 
 
-def main(kernels_only: bool = False, rigid_only: bool = False) -> int:
+PAR_TIMEOUT_S = 180  # every collective of the parallel phase, and its worker processes
+PAR_CPU_FRAMES = 12  # the parallel run on the CPU: frames 0-11, keyframe 10
+PAR_PROBE = 1e-7
+SCHUR_MESH = (16, 16)  # the Schur partition engages at world 2 (8 u-rows a rank)
+SCHUR_OBS = 512
+
+
+class ShardProbe:
+    """Keeps the inputs of the sharded solvers as a parallel run calls them
+    (wrapped in place until :meth:`restore`): the first keyframe's warp
+    batch and normal problem, and the last frame solve's ``SfTData``."""
+
+    def __init__(self):
+        self.sft = self.warps = self.normals = None
+        self._orig = {n: getattr(sharded, n) for n in
+                      ("sft_solve_sharded", "sharded_warp_fits", "sharded_normal_solves")}
+
+        def sft_solve(group, data, cfg, num_iters=None, reg_temp=None):
+            if reg_temp is None:  # a frame's solve, not a re-anchor
+                self.sft = data
+            return self._orig["sft_solve_sharded"](group, data, cfg, num_iters, reg_temp)
+
+        def warps(group, batch, dom, bending, cfg):
+            self.warps = self.warps or (batch, dom, bending)
+            return self._orig["sharded_warp_fits"](group, batch, dom, bending, cfg)
+
+        def normals(group, obs, k_init, num_iters=30):
+            self.normals = self.normals or (obs, k_init, num_iters)
+            return self._orig["sharded_normal_solves"](group, obs, k_init, num_iters)
+
+        sharded.sft_solve_sharded = sft_solve
+        sharded.sharded_warp_fits = warps
+        sharded.sharded_normal_solves = normals
+
+    def restore(self) -> None:
+        for n, f in self._orig.items():
+            setattr(sharded, n, f)
+
+
+def parallel_run(frames, cfg: Config, device, check_waits: bool = False):
+    """``System`` with ``parallel.enabled`` (world 1; the group brought up
+    first with the phase's collective timeout) on the frames, keyframes on.
+    Per frame: host ms (synchronized on the card), all-reduce calls and
+    bytes; per keyframe frame the CUDA-event ms from the chain's start to
+    the frame's end (chain and re-anchor) and of the chain alone.  With
+    ``check_waits`` every frame but the first two runs under
+    ``profiling.host_waits``: "error" for a frame without a keyframe, else
+    "warn" with its waits counted.  Returns (system, per-frame rows)."""
+    device = torch.device(device)
+    parallel.init_distributed(cfg, device, timeout=PAR_TIMEOUT_S)
+    s = System(cfg, device=device)
+    cuda = device.type == "cuda"
+    starts = []
+    chain = CudaSpans() if cuda else None
+    if cuda:
+        orig = s._insert_keyframe
+
+        def insert(*a, **k):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            starts.append(ev)
+            return orig(*a, **k)
+
+        s._insert_keyframe = insert
+        chain.wrap(s, "_insert_keyframe_legacy", "chain")
+    rows = []
+    try:
+        for t, frame in enumerate(frames):
+            kf = t > 0 and s.frames_since_kf + 1 >= cfg.tracking.keyframe_period
+            calls, nbytes = s.group.n_all_reduce, s.group.all_reduce_bytes
+            mode = "warn" if kf or t < 2 else "error"
+            t0 = time.perf_counter()
+            if check_waits and cuda:
+                with profiling.host_waits(mode) as w:
+                    s.track_monocular(frame, timestamp=float(t))
+            else:
+                w = {}
+                s.track_monocular(frame, timestamp=float(t))
+            end = None
+            if cuda:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                torch.cuda.synchronize()
+            rows.append(dict(frame=t, keyframe=kf, ms=(time.perf_counter() - t0) * 1e3,
+                             all_reduce_calls=s.group.n_all_reduce - calls,
+                             all_reduce_bytes=s.group.all_reduce_bytes - nbytes,
+                             wait_mode=mode if check_waits and cuda else None,
+                             waits=sum(w.values()), where=dict(w),
+                             kf_end=end if kf else None))
+        s.flush()
+    finally:
+        s.shutdown()
+        if chain:
+            chain.restore()
+    if cuda:
+        spans = chain.ms().get("chain", [])
+        kf_rows = [r for r in rows if r["keyframe"]]
+        for r, a, ms in zip(kf_rows, starts, spans):
+            r["keyframe_ms"] = a.elapsed_time(r["kf_end"])
+            r["chain_ms"] = ms
+    for r in rows:
+        r.pop("kf_end")
+    return s, rows
+
+
+def pose_gap(a: System, b: System, t: int) -> float:
+    return float(np.abs(np.asarray(a.trajectory[t][1]) - np.asarray(b.trajectory[t][1])).max())
+
+
+def same_run(a: System, b: System) -> bool:
+    """Equal metrics rows and trajectories, bit for bit."""
+    return a._metrics == b._metrics and len(a.trajectory) == len(b.trajectory) and all(
+        np.array_equal(np.asarray(x[1]), np.asarray(y[1])) and x[0] == y[0]
+        for x, y in zip(a.trajectory, b.trajectory))
+
+
+def schur_problem(dev) -> sft.SfTData:
+    """tests/test_parallel.py's large-template problem: a 16x16 plane
+    template, 512 embedded points seen from the identity with 0.8 px noise
+    (seed 7)."""
+    nu, nv = SCHUR_MESH
+    topo = meshmod.grid_topology(nu, nv)
+    dom = torch.tensor([-0.4, 0.4, -0.3, 0.3], device=dev)
+    K = torch.tensor([[500.0, 0, 320.0], [0, 500.0, 240.0], [0, 0, 1.0]], device=dev)
+    nodes = meshmod.grid_nodes_from_surface(
+        lambda u, v: torch.stack([u, v, torch.ones_like(u)], dim=-1), dom, topo)
+    rng = np.random.default_rng(7)
+    n = SCHUR_OBS
+    uvp = torch.as_tensor(np.stack([rng.uniform(-0.38, 0.38, n), rng.uniform(-0.28, 0.28, n)], 1),
+                          dtype=torch.float32, device=dev)
+    facet, bary, _ = meshmod.embed_uv(uvp, dom, topo)
+    obs = cam.project(K, meshmod.facet_positions(nodes, topo, facet, bary)) + torch.as_tensor(
+        rng.normal(0, 0.8, (n, 2)), dtype=torch.float32, device=dev)
+    return sft.data_from_template(
+        meshmod.make_template(nodes, topo), K, torch.eye(4, device=dev), obs_uv=obs,
+        obs_face=facet, obs_bary=bary, obs_invsigma2=torch.ones(n, device=dev),
+        obs_mask=torch.ones(n, dtype=torch.bool, device=dev), n_kp=float(n))
+
+
+def shard_problems(group, inputs: dict, dev) -> dict:
+    """The four sharded solvers on ``group`` at the main path's shapes (the
+    saved frame solve, keyframe 10's warps and normals, the 16x16 Schur
+    problem); numpy results and the SfT's host ms (a warm call first)."""
+    cfg = Config()
+    t = {k: torch.as_tensor(v, device=dev) for k, v in inputs.items()}
+    data = sft.SfTData(**{f: t["sft_" + f] for f in sft.SfTData._fields})
+    out = {}
+    sync = torch.cuda.synchronize if torch.device(dev).type == "cuda" else (lambda: None)
+    sharded.sft_solve_sharded(group, data, cfg)
+    sync()
+    calls, nbytes = group.n_all_reduce, group.all_reduce_bytes
+    t0 = time.perf_counter()
+    r = sharded.sft_solve_sharded(group, data, cfg)
+    sync()
+    out["sft_ms"] = np.asarray((time.perf_counter() - t0) * 1e3)
+    out["sft_all_reduce_calls"] = np.asarray(group.n_all_reduce - calls)
+    out["sft_all_reduce_bytes"] = np.asarray(group.all_reduce_bytes - nbytes)
+    out.update({f"sft_{k}": v.cpu().numpy() for k, v in r._asdict().items()})
+    batch = mapper.WarpBatch(*(t["warp_" + f] for f in mapper.WarpBatch._fields))
+    dps, ctrl = sharded.sharded_warp_fits(group, batch, t["warp_dom"], t["warp_bend"], cfg)
+    out.update({f"warps_{k}": v.cpu().numpy() for k, v in dps._asdict().items()})
+    out["warps_ctrl"] = ctrl.cpu().numpy()
+    obs = nrm.PairObs(*(t["obs_" + f] for f in nrm.PairObs._fields))
+    r = sharded.sharded_normal_solves(group, obs, t["obs_k0"], cfg.mapping.normal_lm_iterations)
+    out.update({f"normals_{k}": v.cpu().numpy() for k, v in r._asdict().items()})
+    scfg = Config(sft=SfTConfig(lm_iterations=12),
+                  mesh=MeshConfig(nodes_u=SCHUR_MESH[0], nodes_v=SCHUR_MESH[1]))
+    r = sharded.sft_solve_sharded(group, schur_problem(dev), scfg)
+    out.update({f"schur_{k}": v.cpu().numpy() for k, v in r._asdict().items()})
+    return out
+
+
+def sharding_overhead(group, data: sft.SfTData, dev) -> dict:
+    """What the world-1 sharded SfT costs over ``sft.solve`` on the same
+    frame problem, and one all-reduce of the LM's block buffer (92,143
+    float32) on its own: host ms of each solve (a warm call first, then the
+    median of 3), and per all-reduce the host us of 125 calls in a row and
+    the CUDA-event us per call of those 125."""
+    cfg = Config()
+    topo = meshmod.grid_topology(cfg.mesh.nodes_u, cfg.mesh.nodes_v)
+
+    def host_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    buf = torch.zeros(36 + 1800 + 90000 + 6 + 300 + 1, device=dev)
+    group.all_reduce(buf)
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    for _ in range(125):
+        group.all_reduce(buf)
+    b.record()
+    host_us = (time.perf_counter() - t0) / 125 * 1e6
+    b.synchronize()
+    return {"sft_single_ms": host_ms(lambda: sft.solve(data, topo, cfg)),
+            "sft_sharded_ms": host_ms(lambda: sharded.sft_solve_sharded(group, data, cfg)),
+            "all_reduce_host_us": host_us, "all_reduce_device_us": a.elapsed_time(b) / 125 * 1e3}
+
+
+def parallel_worker(rank: int, rdv: str, inputs_path: str, outdir: str, device: str) -> int:
+    """A rank of the two that share the card over gloo (NCCL does not put
+    two ranks on one device): ``chip_smoke.py --parallel-worker rank
+    rendezvous inputs.npz outdir device``."""
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{rdv}", world_size=2, rank=rank,
+        timeout=datetime.timedelta(seconds=PAR_TIMEOUT_S))
+    try:
+        with np.load(inputs_path) as f:
+            inputs = dict(f)
+        out = shard_problems(sharded.make_group(2), inputs, torch.device(device))
+        np.savez(os.path.join(outdir, f"rank{rank}.npz"), **out)
+    finally:
+        parallel.shutdown()
+    return 0
+
+
+def parallel_phase(seq, cfg: Config, dev, single=None) -> dict:
+    """Phase 13: the multi-device path (``parallel.enabled``), see the module
+    docstring.  ``single`` is the mapping slice's single-device run on the
+    same frames and config and its frame seconds (run here when not
+    given)."""
+    out = {}
+    pcfg = dataclasses.replace(cfg, parallel=ParallelConfig(enabled=True))
+    frames = seq.frames
+    single, single_s = single or run_slice(frames, cfg, dev, timed=True, localization=False)
+    period = cfg.tracking.keyframe_period
+    # the probe is read through the first keyframe frame only (see below)
+    probe, _ = run_slice(frames[:period + 1], cfg, dev, localization=False, perturb=PAR_PROBE)
+
+    # ---- NCCL world 1 at full width, twice; the launches of the first run
+    shards = ShardProbe()
+    cuda_build.LAUNCHES.clear()
+    try:
+        par, rows = parallel_run(frames, pcfg, dev)
+        torch.cuda.synchronize()
+    finally:
+        shards.restore()
+    launches = dict(cuda_build.LAUNCHES)
+    par2, rows2 = parallel_run(frames, pcfg, dev, check_waits=True)
+    states = [m["state"] for m in par._metrics]
+    kf_frames = [m["frame"] for m in par._metrics if m["keyframe"]]
+    swaps = [m["template"] for m in par._metrics[1:] if m["keyframe"]]
+    print("parallel states", states, "keyframes", kf_frames, "swaps", swaps, "launches", launches,
+          flush=True)
+    if any(s != TrackingState.OK.name for s in states):
+        raise SystemExit(f"parallel: not every frame tracked: {states}")
+    if kf_frames != [0] + list(range(period, len(frames), period)):
+        raise SystemExit(f"parallel: keyframes at {kf_frames}")
+    n_kf = len(kf_frames) - 1
+    if launches.get("windowed_match", 0) != 2 * n_kf:
+        raise SystemExit(f"parallel: windowed_match launched {launches.get('windowed_match', 0)} "
+                         f"times for {n_kf} keyframes (2 each)")
+    if launches.get("hamming_matrix", 0) < len(frames) - 1 + sum(swaps):
+        raise SystemExit(f"parallel: hamming_matrix launched {launches.get('hamming_matrix', 0)} "
+                         f"times for {len(frames) - 1} frames and {sum(swaps)} re-anchors")
+    repeats = same_run(par, par2)
+    print("parallel: the card repeats its run bit for bit:", repeats, flush=True)
+    if not repeats:
+        raise SystemExit("parallel: two runs on the card differ")
+    waits = [dict(frame=r["frame"], mode=r["wait_mode"], waits=r["waits"], where=r["where"])
+             for r in rows2 if r["wait_mode"]]
+    print("parallel host waits", json.dumps(waits), flush=True)
+    if any(w["waits"] for w in waits if w["mode"] == "error"):
+        raise SystemExit("parallel: a frame dispatch without a keyframe waited for the host")
+
+    # ---- against the single-device run: flags on every frame; counts and
+    # pose through the first keyframe frame.  After a template swap the
+    # legacy chain's map is another map, in the JAX package as here: its
+    # culling sees the keyframe counter after the increment and drops the
+    # first keyframe's points with <= 2 observations (ROADMAP C)
+    cmp = []
+    for t, (mp, ms) in enumerate(zip(par._metrics, single._metrics)):
+        gap = pose_gap(par, single, t)
+        pgap = pose_gap(probe, single, t) if t <= period else None
+        ok = all(mp[k] == ms[k] for k in ("state", "keyframe", "template"))
+        if t <= period:
+            ok = ok and gap <= max(2e-2, 3 * pgap) and all(
+                abs(mp[k] - ms[k]) <= max(1, 0.02 * ms[k]) for k in ("matches", "inliers"))
+        cmp.append(dict(frame=t, matches=[mp["matches"], ms["matches"]],
+                        inliers=[mp["inliers"], ms["inliers"]], template=[mp["template"],
+                        ms["template"]], pose_gap=gap, probe_gap=pgap, ok=ok))
+    print("parallel vs single", json.dumps(cmp), flush=True)
+    if not all(c["ok"] for c in cmp):
+        raise SystemExit("parallel: the run disagrees with the single-device run")
+
+    # ---- the same parallel run on the CPU over gloo
+    cpu, cpu_rows = parallel_run(frames[:PAR_CPU_FRAMES], pcfg, "cpu")
+    cpu_cmp = compare_runs(par, cpu, None)
+    if not all(r["ok"] for r in cpu_cmp):
+        raise SystemExit("parallel: the card's run disagrees with the CPU's")
+
+    # ---- the sharded solvers at world 1 (NCCL) and world 2 (two ranks over gloo)
+    inputs = {f"sft_{f}": getattr(shards.sft, f).cpu().numpy() for f in sft.SfTData._fields}
+    batch, dom, bend = shards.warps
+    inputs.update({f"warp_{f}": getattr(batch, f).cpu().numpy() for f in mapper.WarpBatch._fields})
+    inputs.update(warp_dom=dom.cpu().numpy(), warp_bend=bend.cpu().numpy())
+    obs, k0, _ = shards.normals
+    inputs.update({f"obs_{f}": getattr(obs, f).cpu().numpy() for f in nrm.PairObs._fields})
+    inputs["obs_k0"] = k0.cpu().numpy()
+    parallel.init_distributed(pcfg, dev, timeout=PAR_TIMEOUT_S)
+    try:
+        group = sharded.make_group(1)
+        w1 = shard_problems(group, inputs, dev)
+        # the frame solve's own sensitivity: the same solve from nodes0
+        # scaled by (1 + N(0, 1e-7))
+        data = sft.SfTData(**{f: torch.as_tensor(inputs["sft_" + f], device=dev)
+                              for f in sft.SfTData._fields})
+        noise = torch.as_tensor(np.random.default_rng(1).normal(0.0, PAR_PROBE, data.nodes0.shape),
+                                dtype=torch.float32, device=dev)
+        probe_res = sharded.sft_solve_sharded(group, data._replace(
+            nodes0=data.nodes0 * (1.0 + noise)), Config())
+        overhead = sharding_overhead(group, data, dev)
+    finally:
+        parallel.shutdown()
+    work = os.path.join("chiprun_out", "parallel_world2")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    np.savez(os.path.join(work, "inputs.npz"), **inputs)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-worker",
+                               str(r), os.path.join(os.path.abspath(work), "rdv"),
+                               os.path.join(work, "inputs.npz"), work, str(dev)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in (0, 1)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=2 * PAR_TIMEOUT_S)[0].decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        if p.returncode != 0:
+            raise SystemExit(f"parallel: a world-2 rank failed:\n{log[-4000:]}")
+    w2 = [dict(np.load(os.path.join(work, f"rank{r}.npz"))) for r in (0, 1)]
+    timing_keys = ("sft_ms",)
+    unequal = [k for k in w2[0] if k not in timing_keys and not np.array_equal(w2[0][k], w2[1][k])]
+    if unequal:
+        raise SystemExit(f"parallel: the two ranks differ in {unequal}")
+    nres = nrm.NormalResult(*(torch.as_tensor(w1[f"normals_{k}"]) for k in nrm.NormalResult._fields))
+    gate = mapper.normal_reliability_gate(nres, cfg.regularizer.reliability).numpy()
+    r = w2[0]
+    sft_probe = {"T": float(np.abs(probe_res.T.cpu().numpy() - w1["sft_T"]).max()),
+                 "nodes": float(np.abs(probe_res.nodes.cpu().numpy() - w1["sft_nodes"]).max())}
+    shard_gaps = {
+        "sft_T": float(np.abs(r["sft_T"] - w1["sft_T"]).max()),
+        "sft_nodes": float(np.abs(r["sft_nodes"] - w1["sft_nodes"]).max()),
+        "sft_inlier_equal": float((r["sft_inlier"] == w1["sft_inlier"]).mean()),
+        "schur_T": float(np.abs(r["schur_T"] - w1["schur_T"]).max()),
+        "schur_nodes": float(np.abs(r["schur_nodes"] - w1["schur_nodes"]).max()),
+        "warps_warped": float(np.abs(r["warps_warped"] - w1["warps_warped"]).max()),
+        "normals_k_gated": float(np.abs(r["normals_k"] - w1["normals_k"])[gate].max()),
+        "normals_gate_equal": bool((mapper.normal_reliability_gate(nrm.NormalResult(*(
+            torch.as_tensor(r[f"normals_{k}"]) for k in nrm.NormalResult._fields)),
+            cfg.regularizer.reliability).numpy() == gate).all()),
+    }
+    print("parallel world 2 vs world 1", json.dumps(shard_gaps), "the frame SfT's 1e-7 probe",
+          json.dumps(sft_probe), flush=True)
+    # the JAX package's tolerances (tests/test_parallel.py); the frame's
+    # SfT, a real problem where a reduction order moves the solution along
+    # its flat directions, within 3x its own 1e-7 probe where that is larger
+    limits = {"sft_T": max(1e-4, 3 * sft_probe["T"]), "sft_nodes": max(1e-4, 3 * sft_probe["nodes"]),
+              "schur_T": 1e-4, "schur_nodes": 2e-4, "warps_warped": 1e-4, "normals_k_gated": 3e-3}
+    if (any(shard_gaps[k] > v for k, v in limits.items()) or shard_gaps["sft_inlier_equal"] < 0.99
+            or not shard_gaps["normals_gate_equal"]):
+        raise SystemExit(f"parallel: world 2 disagrees with world 1 beyond {limits}")
+
+    plain = [r for r in rows[1:] if not r["keyframe"]]
+    single_plain = [single_s[m["frame"]] * 1e3 for m in single._metrics[1:] if not m["keyframe"]]
+    out.update({
+        "single_frame_p50_ms": statistics.median(single_plain),
+        "single_keyframe_frame_ms": [single_s[m["frame"]] * 1e3 for m in single._metrics[1:]
+                                     if m["keyframe"]],
+        "states": states, "swaps": swaps, "launches": launches, "card_repeats_bit_for_bit": repeats,
+        "host_waits": waits, "vs_single": cmp, "cpu_frames": cpu_cmp,
+        "frame_ms": [r["ms"] for r in rows], "frame_p50_ms": statistics.median(
+            r["ms"] for r in plain), "frame_max_ms": max(r["ms"] for r in rows[1:]),
+        "keyframe_frame_ms": [r["ms"] for r in rows if r["keyframe"]],
+        "keyframe_ms": [r.get("keyframe_ms") for r in rows if r["keyframe"]],
+        "keyframe_chain_ms": [r.get("chain_ms") for r in rows if r["keyframe"]],
+        "all_reduce_calls_per_frame": statistics.median(r["all_reduce_calls"] for r in plain),
+        "all_reduce_bytes_per_frame": statistics.median(r["all_reduce_bytes"] for r in plain),
+        "all_reduce_per_keyframe_frame": [(r["all_reduce_calls"], r["all_reduce_bytes"])
+                                          for r in rows if r["keyframe"]],
+        "cpu_frame_ms": [r["ms"] for r in cpu_rows],
+        "sft_world1_ms": float(w1["sft_ms"]), "sft_world2_ms": [float(x["sft_ms"]) for x in w2],
+        "sft_all_reduce": {"world1": [int(w1["sft_all_reduce_calls"]),
+                                      int(w1["sft_all_reduce_bytes"])],
+                           "world2": [int(r["sft_all_reduce_calls"]),
+                                      int(r["sft_all_reduce_bytes"])]},
+        "sft_observations": int(inputs["sft_obs_mask"].shape[0]),
+        "world2_vs_world1": shard_gaps, "world2_limits": limits, "sft_probe_gap": sft_probe,
+        "sharding_overhead": overhead,
+    })
+    print("parallel", json.dumps({k: v for k, v in out.items()
+                                  if k not in ("vs_single", "cpu_frames")}), flush=True)
+    return out
+
+
+def main(kernels_only: bool = False, rigid_only: bool = False,
+         parallel_only: bool = False) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2001,6 +2448,24 @@ def main(kernels_only: bool = False, rigid_only: bool = False) -> int:
     rates = card_rates()
     print("card_rates", json.dumps(rates), flush=True)
     phase_done("build")
+    if parallel_only:
+        kern_h = check_hamming(dev, rates)
+        kern_w = check_windowed_match(cfg, dev, rates)
+        phase_done("kernels")
+        torch.set_num_threads(max(1, os.cpu_count() or 1))
+        par = parallel_phase(seq, cfg, dev)
+        phase_done("parallel")
+        for k, name in ((kern_h, "hamming_matrix"), (kern_w, "windowed_match")):
+            k["launches_by_path"] = {"parallel": par["launches"].get(name, 0)}
+            k["launches"] = k["launches_by_path"]["parallel"]
+        print("phase_s", json.dumps(phase_s), flush=True)
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "chip_smoke_parallel.json"), "w") as f:
+            json.dump({"nvidia_smi": smi, "kernels": [kern_h, kern_w], "parallel": par,
+                       "phase_s": phase_s}, f, indent=1, default=str)
+        print(smi, flush=True)
+        print(json.dumps({"kernels": [kern_h, kern_w]}), flush=True)
+        return 0
     if rigid_only:
         kern_h = check_hamming(dev, rates)
         kern_h["rigid_shape"] = hamming_at_shape(dev, RIGID_SHAPE, 25, "rigid tracking")
@@ -2083,6 +2548,8 @@ def main(kernels_only: bool = False, rigid_only: bool = False) -> int:
     phase_done("apps")
     rigid = rigid_phase(dev)
     phase_done("rigid")
+    par = parallel_phase(seq, cfg, dev, single=(gpu_map, map_frame_s))
+    phase_done("parallel")
     timing.update({
         "relocalize_ms": reloc["relocalize_ms"],
         "relocalize_call_ms": reloc["relocalize_call_ms"],
@@ -2101,13 +2568,18 @@ def main(kernels_only: bool = False, rigid_only: bool = False) -> int:
                                            "local_ba_ms", "close_loop_ms")},
                   "loop_close_loop_wall_ms": rigid["loop"]["card"]["close_loop_wall_ms"],
                   "loop_global_ba_ms": rigid["loop"]["card"]["global_ba_ms"]},
+        "parallel": {k: par[k] for k in (
+            "frame_p50_ms", "frame_max_ms", "single_frame_p50_ms", "single_keyframe_frame_ms", "keyframe_frame_ms", "keyframe_ms",
+            "keyframe_chain_ms", "sft_world1_ms", "sft_world2_ms", "all_reduce_calls_per_frame",
+            "all_reduce_bytes_per_frame")},
     })
     print("timing", json.dumps(timing), flush=True)
 
     paths = {"tracking": launches_t, "mapping": launches_m,
              "relocalization": reloc["launches"], "occlusion_gt": occl["launches"],
              "pipelined": pipe["launches"], "apps": apps["launches"], "rigid": rigid["launches"],
-             "rigid_loop": rigid["loop"]["card"]["launches"], "rigid_cli": rigid["cli"]["launches"]}
+             "rigid_loop": rigid["loop"]["card"]["launches"], "rigid_cli": rigid["cli"]["launches"],
+             "parallel": par["launches"]}
     for k, name in ((kern_h, "hamming_matrix"), (kern_w, "windowed_match")):
         k["launches_by_path"] = {p: counts.get(name, 0) for p, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -2139,7 +2611,7 @@ def main(kernels_only: bool = False, rigid_only: bool = False) -> int:
            "frames": rows, "mapping_frames": map_rows, "mapping_diags": gpu_map.map_diags,
            "keyframe_card_vs_cpu": kf_row, "relocalization": reloc, "occlusion": occl,
            "stereo_card_vs_cpu": stereo, "pipelined": pipe, "apps": apps, "rigid": rigid,
-           "phase_s": phase_s}
+           "parallel": par, "phase_s": phase_s}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(out, f, indent=1)
@@ -2152,4 +2624,7 @@ def main(kernels_only: bool = False, rigid_only: bool = False) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(kernels_only="--kernels" in sys.argv[1:], rigid_only="--rigid" in sys.argv[1:]))
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        sys.exit(parallel_worker(int(sys.argv[2]), *sys.argv[3:7]))
+    sys.exit(main(kernels_only="--kernels" in sys.argv[1:], rigid_only="--rigid" in sys.argv[1:],
+                  parallel_only="--parallel" in sys.argv[1:]))

@@ -12,8 +12,6 @@ shape derived from them.
 This is the PyTorch port's own copy of ``defslam_tpu/config.py`` (the port
 imports nothing of the JAX package).  ``yaml`` is imported only inside
 :func:`load_raw_yaml`, so the package imports without PyYAML installed.
-``parallel.enabled`` makes ``System`` raise ``NotImplementedError``: the
-multi-device path is not ported yet.
 """
 
 from __future__ import annotations
@@ -298,22 +296,27 @@ class ViewerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """Multi-chip execution (no reference equivalent — the reference's only
-    parallelism is 3 CPU threads, System.cc:140-169; SURVEY 5.7-5.8 defines
-    the TPU-native scaling obligations this config drives).
+    """Multi-device execution over ``torch.distributed`` (no reference
+    equivalent: the reference's only parallelism is 3 CPU threads,
+    System.cc:140-169).  One device per process: a world of N processes
+    stands in for the JAX package's N-device mesh, and every process runs
+    the whole System on the same frames (``parallel.init_distributed``,
+    ``parallel.sharded``).
 
-    ``enabled`` shards the production System over a jax.sharding.Mesh:
-    observation-sharded SfT (psum'd normal-equation blocks over ICI) in the
-    frame loop, pair-sharded warp fits and point-sharded normal solves in
-    the mapping step.  ``coordinator`` switches on multi-host
-    jax.distributed (one process per host, DCN between hosts, ICI inside)."""
+    ``enabled`` switches the System to the multi-device path:
+    observation-sharded SfT (all-reduced normal-equation blocks) in the
+    frame loop, and the host-orchestrated keyframe chain with pair-sharded
+    warp fits and point-sharded normal solves.  The process group is NCCL
+    for a CUDA device, gloo for the CPU."""
 
     enabled: bool = False
-    n_devices: int = 0  # 0 = all visible devices
-    # multi-host plumbing (jax.distributed.initialize); "" = single process
+    # the world size the System expects; 0 = whatever the world is
+    n_devices: int = 0
+    # the rendezvous of a multi-process world: "host:port" (tcp://) or a
+    # URL such as file:///shared/path; "" = a world of 1 in this process
     coordinator: str = ""
-    num_processes: int = 1
-    process_id: int = 0
+    num_processes: int = 1  # the world size
+    process_id: int = 0  # this process's rank
 
 
 @dataclasses.dataclass(frozen=True)

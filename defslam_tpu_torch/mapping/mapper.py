@@ -263,6 +263,12 @@ def densify_matches(ctrls, retina1, valid1, desc1, retina2, valid2, desc2, dom, 
     return torch.where(ok, idx, -1), best
 
 
+def solve_normals(obs: nrm.PairObs, k_init: torch.Tensor, num_iters: int = 30) -> nrm.NormalResult:
+    """The normal solve over the full point capacity (the multi-device
+    keyframe chain's, where the point axis is sharded)."""
+    return nrm.solve_k1k2(obs, k_init, num_iters=num_iters)
+
+
 def solve_normals_compact(obs: nrm.PairObs, k_init: torch.Tensor, capacity: int,
                           num_iters: int = 30) -> nrm.NormalResult:
     """The normal solve with the point axis compacted to ``capacity`` slots

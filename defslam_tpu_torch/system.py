@@ -39,6 +39,16 @@ synchronous path re-anchors a second time after a template swap when the
 GT harness is on; its default (pipelined) path does not, and neither does
 the port.
 
+``parallel.enabled`` runs the JAX package's multi-device path over
+``torch.distributed`` (one device per process; every rank runs the whole
+System on the same frames, see ``parallel``): the frame's SfT solve is
+observation-sharded (``tracker.track_frame_parallel``), and keyframes go
+through the host-orchestrated chain (:meth:`System._insert_keyframe_legacy`:
+pair-sharded warp fits, point-sharded normal solves, three host reads (the
+free slot, the template decision, the registration's verdict), a
+synchronous keyframe frame, the re-anchor after a swap in
+:meth:`System._validate_and_commit`) in place of ``keyframe_step``.
+
 Everything runs on ``System.device``: CUDA unless the caller passes
 ``device="cpu"``.  Importing this module turns TF32 off for CUDA matmuls
 and cuDNN convolutions: the reference computes its matmuls in full float32
@@ -59,21 +69,24 @@ import numpy as np
 import torch
 
 from defslam_tpu_torch import config as cfgmod
-from defslam_tpu_torch import profiling
+from defslam_tpu_torch import parallel, profiling
 from defslam_tpu_torch.config import Config
 from defslam_tpu_torch.convert import numpy_from_tensor, tensor_from_numpy
 from defslam_tpu_torch.frontend import Features, extract_features
 from defslam_tpu_torch.geometry import camera as cam
 from defslam_tpu_torch.mapping import mapper
 from defslam_tpu_torch.mapstore import state as store
+from defslam_tpu_torch.ops import bspline
+from defslam_tpu_torch.parallel import sharded
 from defslam_tpu_torch.template import mesh as meshmod
 from defslam_tpu_torch.tracking import pose_opt, tracker
-from defslam_tpu_torch.utils import Readback
+from defslam_tpu_torch.utils import Readback, put_
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 TEMPLATE_HISTORY_CAP = 256  # keyframe-time templates kept for export
+INT32_MAX = 2**31 - 1
 
 
 class TrackingState(enum.Enum):
@@ -126,13 +139,15 @@ class System:
         if isinstance(cfg, str):
             cfg = Config.from_yaml(cfg)
         self.cfg = cfg or Config()
-        if self.cfg.parallel.enabled:
-            raise NotImplementedError(
-                "parallel.enabled: the multi-device path (defslam_tpu/parallel) is not ported")
         if self.cfg.viewer.save_frames and importlib.util.find_spec("matplotlib") is None:
             raise ImportError("viewer.save_frames draws the frames with matplotlib, "
                               "which is not installed")
         self.device = resolve_device(device)
+        # the multi-device path (Config.parallel): the group of ranks, or None
+        self.group = None
+        if self.cfg.parallel.enabled:
+            parallel.init_distributed(self.cfg, self.device)
+            self.group = sharded.make_group(self.cfg.parallel.n_devices)
         self._derive_constants()
         self._localization_only = False
         self._metrics: list[dict] = []
@@ -215,8 +230,11 @@ class System:
         self._finalize_pending_map()
 
     def shutdown(self):
-        """No threads to join; drain the pipeline."""
+        """No threads to join; drain the pipeline, and in parallel mode
+        destroy the process group."""
         self.flush()
+        if self.group is not None:
+            parallel.shutdown()
 
     def activate_localization_mode(self):
         self._localization_only = True
@@ -371,6 +389,11 @@ class System:
         return img.to(self.device, non_blocking=True)
 
     def _track_frame(self, img, window_scale: float = 1.0):
+        if self.group is not None:
+            return tracker.track_frame_parallel(
+                self.group, img, self.points, self.pose, self.prev_pose, self.template,
+                self.K, self.cfg, window_scale=window_scale,
+            )
         return tracker.track_frame(
             img, self.points, self.pose, self.prev_pose, self.template,
             self.K, self.cfg, window_scale=window_scale,
@@ -388,11 +411,14 @@ class System:
         half writes in place.  A frame found failed up to D frames late is
         rolled back from the backups, an optimistic keyframe insertion
         with it, and it and every newer in-flight frame are replayed
-        through the synchronous retry ladder, in frame order."""
+        through the synchronous retry ladder, in frame order.  In parallel
+        mode a keyframe frame is synchronous: its chain orchestrates on
+        the host."""
         c = self.cfg
         will_kf = (not self._localization_only
                    and self.frames_since_kf + 1 >= c.tracking.keyframe_period)
-        pipelined = c.tracking.pipelined and self.state == TrackingState.OK
+        pipelined = (c.tracking.pipelined and self.state == TrackingState.OK
+                     and not (will_kf and self.group is not None))
         with profiling.stage("frame.dispatch"):
             out = self._track_frame(img)
         target = max(1, c.tracking.pipeline_depth) - 1 if pipelined else 0
@@ -528,17 +554,30 @@ class System:
         )
         row = self._record(timestamp, n_matches, n_inliers, is_kf, False,
                            n_local=int(stats_h[2]), n_dropped=int(stats_h[3]))
+        template_updated = False
         if is_kf:
-            self._insert_keyframe(feats, matches, res, row)
+            template_updated = self._insert_keyframe(feats, matches, res, row)
             self.frames_since_kf = 0
+            if template_updated:
+                # the legacy chain's re-anchor: camera and new mesh against
+                # this frame with the temporal term off (DefTracking.cc:
+                # 115-117, DefPoseOptimization(..., RegTemp=0))
+                matches2 = tracker.match_points_to_frame(self.points, self.pose, self.K, feats, c)
+                res2 = tracker.sft_track_sharded(self.group, self.points, matches2, feats,
+                                                 self.template, self.pose, self.K, c,
+                                                 reg_temp=0.0)
+                self.pose = res2.T
+                self.template = self.template._replace(nodes=res2.nodes)
+                self.points = tracker.reposition_points(self.points, res2.nodes, c)
             # the keyframe step may re-register (Sim(3) rescale) or
             # re-anchor the pose: a velocity spanning that gauge jump would
             # extrapolate garbage, so it is dropped for one frame
             self.prev_pose = self.pose
         self._maybe_draw_frame(img, feats, matches)
-        # as in the JAX package's fused path, the result reports the
-        # template flag as False; the keyframe's metrics row carries it
-        return FrameResult(pose_h, self.state, n_matches, n_inliers, is_kf, False)
+        # as in the JAX package, the fused path reports the template flag as
+        # False here (the keyframe's metrics row carries it); the legacy
+        # chain of parallel mode reports it
+        return FrameResult(pose_h, self.state, n_matches, n_inliers, is_kf, template_updated)
 
     def _maybe_draw_frame(self, img, feats, matches) -> None:
         """DefFrameDrawer: with ``viewer.save_frames``, an annotated PNG of
@@ -561,15 +600,23 @@ class System:
             extract_features(img, self.cfg), self.kfs, self.points, self.K, self.cfg)
         return (True, T) if bool(ok) else (False, None)
 
-    def _insert_keyframe(self, feats, matches, res, row: dict) -> None:
+    def _insert_keyframe(self, feats, matches, res, row: dict) -> bool:
         """CreateNewKeyFrame and the mapping step, reported through the
         keyframe's metrics ``row`` when its diagnostics are read
         (:meth:`_finalize_pending_map`).  Fused: one ``keyframe_step``,
         which also re-anchors pose and template when it swaps the template.
         Split (``tracking.split_keyframe_dispatch``, off while the GT
         harness evaluates keyframe angles): half A now, half B dispatched
-        by the next tracked frame (:meth:`_dispatch_pending_kf_b`)."""
+        by the next tracked frame (:meth:`_dispatch_pending_kf_b`).  In
+        parallel mode the legacy chain, which fills the row at once and
+        returns whether it swapped the template (the caller re-anchors);
+        the fused and split paths return False."""
         c = self.cfg
+        if self.group is not None:
+            updated = self._insert_keyframe_legacy(feats, matches, res)
+            self._record_template_history()
+            row["template"] = updated
+            return updated
         self._finalize_pending_map()
         self._dispatch_pending_kf_b()  # a keyframe period of 1
         # the GT harness evaluates the keyframe's normal angles whenever
@@ -589,7 +636,7 @@ class System:
             self._pending_kf_b = (carry, Readback.start([carry.gate]), feats, row,
                                   self.kf_counter)
             self.kf_counter += 1
-            return
+            return False
         with profiling.stage("keyframe.dispatch"):
             self.kfs, self.points, self.template, self.pose, diag = mapper.keyframe_step(
                 self.kfs, self.points, self.template, self.pose, feats,
@@ -602,6 +649,7 @@ class System:
         self._start_map_readback(diag, row, gt_angles)
         if gt_angles or not c.tracking.pipelined:
             self._finalize_pending_map()
+        return False
 
     def _dispatch_pending_kf_b(self):
         """Dispatch half B of a split keyframe chain.  Called right after
@@ -678,6 +726,147 @@ class System:
         if gt_angles and d.n_pairs > 0 and d.n_norm >= self.cfg.mapping.min_normals:
             self._gt_eval.evaluate_keyframe_angles(self, d.kf_t)
         return d
+
+    # ------------------------------------- the legacy keyframe chain (parallel)
+
+    def _free_kf_slot(self) -> int:
+        """The first free keyframe slot, else the oldest keyframe that is not
+        the template's source (one host read)."""
+        valid, fid = Readback.start([self.kfs.valid, self.kfs.frame_id]).get()
+        free = np.nonzero(~valid)[0]
+        if len(free):
+            return int(free[0])
+        fid = fid.copy()
+        fid[self.template_ref_kf] = INT32_MAX
+        return int(np.argmin(fid))
+
+    def _insert_keyframe_legacy(self, feats, matches, res) -> bool:
+        """CreateNewKeyFrame and the host-orchestrated mapping step of the
+        JAX package's multi-device path.  Returns whether the template was
+        swapped."""
+        slot = self._free_kf_slot()
+        self.kf_counter += 1
+        self.kfs, n_obs = store.insert_keyframe_from_matches(
+            self.kfs, self.points.n_obs, slot, self.pose, feats, matches.kp_of_point,
+            res.inlier, self.K, self.frame_id, self.points.xyz,
+        )
+        self.points = self.points._replace(n_obs=n_obs)
+        return self._mapping_step(slot)
+
+    def _mapping_step(self, slot: int) -> bool:
+        """Warps -> densify -> normals -> the template decision -> (maybe)
+        SfN, registration and re-template.  Warp fits are pair-sharded and
+        normal solves point-sharded over the group where the axis divides
+        over it.  One host read of the decision scalars (and one more of
+        the registration's verdict in :meth:`_retemplate`)."""
+        c = self.cfg
+        cp = mapper.covis_pairs(self.kfs.point_id, self.kfs.retina, self.kfs.valid,
+                                self.points.valid, slot, c)
+        batch = mapper.WarpBatch(uv1=cp.uv1, uv2=cp.uv2, mask=cp.mask, pair_valid=cp.pair_valid)
+        if c.capacity.max_warp_pairs % self.group.size:
+            dps, ctrls = mapper.fit_warps(batch, self.dom, self.bend_warp, c)
+        else:
+            dps, ctrls = sharded.sharded_warp_fits(self.group, batch, self.dom, self.bend_warp, c)
+        self._densify(slot, cp, ctrls)
+
+        p_cap = c.capacity.max_map_points
+        obs, _ = mapper.accumulate_obs_device(cp.pid_table, dps.mask, cp.uv1, dps.warped, dps.J12,
+                                              dps.Huu, dps.Hvv, p_cap, mapper.OBS_CAP)
+        iters = c.mapping.normal_lm_iterations
+        if p_cap % self.group.size:
+            nres = mapper.solve_normals(obs, self.points.norm_k0, num_iters=iters)
+        else:
+            nres = sharded.sharded_normal_solves(self.group, obs, self.points.norm_k0,
+                                                 num_iters=iters)
+        # write the normals into the new keyframe and propagate them to the
+        # covisible keyframes through the warp Jacobians
+        # (NormalEstimator.cc:159-224), as the fused step does
+        solved_ok = mapper.normal_reliability_gate(nres, c.regularizer.reliability)
+        self.points = self.points._replace(
+            norm_k0=torch.where(solved_ok[:, None], nres.k, self.points.norm_k0))
+        pid_row = self.kfs.point_id[slot]
+        norm_k, norm_valid, _ = mapper.write_normals(
+            self.kfs.norm_k, self.kfs.norm_valid, slot, pid_row, nres.k, solved_ok)
+        norm_k, norm_valid = mapper.propagate_normals(norm_k, norm_valid, cp, dps, nres.k,
+                                                      solved_ok)
+        self.kfs = self.kfs._replace(norm_k=norm_k, norm_valid=norm_valid)
+
+        # template source: the new keyframe when exploring, else the most
+        # voted reference keyframe (needNewTemplate 355-404, selectKeyframe
+        # 411-441); one read brings every keyframe's normal count with it
+        explore = mapper.exploration_count(self.kfs.xy[slot], self.kfs.kp_valid[slot], pid_row, c)
+        sel = mapper.select_ref_keyframe(pid_row, self.points.ref_kf, self.points.valid,
+                                         self.kfs.valid, slot)
+        n_new, sel, n_pairs, n_norm_all = Readback.start(
+            [explore, sel, cp.n_pairs, self.kfs.norm_valid.sum(dim=1)]).get()
+        if int(n_pairs) == 0:
+            return False
+        kf_t = slot if int(n_new) > c.mapping.points_to_template else int(sel)
+        if int(n_norm_all[kf_t]) < c.mapping.min_normals:  # enoughNormals, Surface.cc:62-67
+            return False
+        updated = self._retemplate(kf_t)
+        # the GT harness's keyframe angles, after the SfN surface is stored
+        # (estimateAngleErrorAndScale inside NRSfM, DefLocalMapping.cc:216-221)
+        if c.save_results and self._gt_eval is not None:
+            self._gt_eval.evaluate_keyframe_angles(self, kf_t)
+        return updated
+
+    def _densify(self, slot: int, cp: mapper.CovisPairs, ctrls):
+        """Warp-guided match densification (kernel B2 through
+        ``mapper.densify_matches``) merged into the observation tables."""
+        kfs = self.kfs
+        best, _ = mapper.densify_matches(
+            ctrls, kfs.retina[slot], kfs.kp_valid[slot], kfs.desc[slot],
+            kfs.retina[cp.pair_kf], kfs.kp_valid[cp.pair_kf], kfs.desc[cp.pair_kf],
+            self.dom, cp.pair_valid, self.cfg,
+        )
+        best = torch.where(cp.pair_valid[:, None], best, -1)
+        point_id, n_obs = mapper.apply_densify(kfs.point_id, self.points.n_obs, slot, cp.pair_kf,
+                                               best)
+        self.kfs = kfs._replace(point_id=point_id)
+        self.points = self.points._replace(n_obs=n_obs)
+
+    def _retemplate(self, slot: int) -> bool:
+        """SfN on the keyframe, Sim(3) registration and the template swap
+        (DefLocalMapping::NRSfM 172-234, updateTemplate 138-153), then new
+        map points and culling.  One host read (the SfN and registration
+        verdicts); returns whether the template was swapped."""
+        c = self.cfg
+        kfs = self.kfs
+        retina = kfs.retina[slot]
+        if c.mapping.per_kf_domain:
+            dom_s = mapper.bbox_domain(retina, kfs.kp_valid[slot], self.dom,
+                                       margin=c.mapping.kf_domain_margin)
+            bend_s = bspline.bending_matrix_dyn(dom_s, c.mapping.sfn_ctrl_u, c.mapping.sfn_ctrl_v)
+        else:
+            dom_s, bend_s = self.dom, self.bend_sfn
+        res_sfn = mapper.integrate_surface(retina, kfs.norm_k[slot], kfs.norm_valid[slot], dom_s,
+                                           bend_s, c, ext_dom=self.dom)
+        pose = kfs.pose[slot]
+        pid_row = kfs.point_id[slot]
+        surf_xyz, map_xyz, mask, embedded = mapper.registration_pairs(
+            res_sfn.xyz, pid_row, kfs.kp_xyz[slot], kfs.kp_xyz_valid[slot], kfs.norm_valid[slot],
+            self.points.valid, self.points.facet, pose,
+        )
+        reg = mapper.register_surface(surf_xyz, map_xyz, mask, c)
+        sfn_ok, accepted = Readback.start([res_sfn.ok, reg.accepted]).get()
+        if not (bool(sfn_ok) and bool(accepted)):
+            return False
+        ctrl_p = mapper.polish_surface(res_sfn.ctrl, reg, retina, map_xyz, embedded, dom_s,
+                                       bend_s, c, grid_dom=self.dom)
+        regen = mapper.regen_template(ctrl_p, reg, pose, retina, self.dom, c, spline_dom=dom_s)
+        self.template = regen.template
+        self.template_ref_kf = slot
+        self.points, pid_row_new = mapper.rebuild_points(
+            self.points, regen, pose, self.K, pid_row, kfs.kp_valid[slot], kfs.desc[slot],
+            kfs.angle[slot], slot, self.dom, c, self.kf_counter,
+        )
+        put_(kfs.point_id, slot, pid_row_new)
+        put_(kfs.surf_ctrl, slot, ctrl_p)
+        put_(kfs.surf_valid, slot, True)  # not `x[slot] = True`: that waits for the stream
+        put_(kfs.surf_dom, slot, dom_s)
+        self.points, _ = mapper.cull_points(self.points, kfs.point_id, kfs.valid, self.kf_counter)
+        return True
 
     # -------------------------------------------------------- persistence
 

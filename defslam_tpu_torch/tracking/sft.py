@@ -110,7 +110,12 @@ def _blend(obs_face, obs_bary, topo: meshmod.MeshTopology, m: int):
 
 
 def _prepare(data: SfTData, topo: meshmod.MeshTopology, cfg: Config,
-             reg_temp: float) -> _Pre:
+             reg_temp: float, reduce=None) -> _Pre:
+    """Per-solve constants.  With ``reduce`` (a callable that sums a tensor
+    over the ranks in place), the observation rows of ``data`` are one
+    rank's share: the viewed-node counts, the only reduction over the
+    observations here, are summed so that every rank derives the same
+    LocalZone mask and weight normalizations."""
     reg = cfg.regularizer
     nodes0 = data.nodes0
     m = nodes0.shape[0]
@@ -122,6 +127,8 @@ def _prepare(data: SfTData, topo: meshmod.MeshTopology, cfg: Config,
     touched.index_add_(
         0, fcorners.reshape(-1), data.obs_mask.to(torch.int32).repeat_interleave(3)
     )
+    if reduce is not None:
+        reduce(touched)
     viewed = touched > 0
     optlap = viewed
     for _ in range(max(int(reg.local_zone), 0)):

@@ -9,6 +9,7 @@ distance matrix runs through kernel B1 (``ops.hamming``).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -122,12 +123,37 @@ def sft_track(points: PointStore, matches: FrameMatches, feats: Features,
     topo = meshmod.grid_topology(cfg.mesh.nodes_u, cfg.mesh.nodes_v)
     data, sel, sel_mask = _sft_data_from_matches(points, matches, feats, tmpl, pose0, K, cfg)
     res = sft.solve(data, topo, cfg, reg_temp=reg_temp)
-    p_cap = points.capacity
+    return _scatter_sft_result(res, sel, sel_mask, points.capacity, cfg)
+
+
+def sft_track_sharded(group, points: PointStore, matches: FrameMatches, feats: Features,
+                      tmpl: meshmod.Template, pose0: torch.Tensor, K: torch.Tensor,
+                      cfg: Config, reg_temp: float | None = None) -> sft.SfTResult:
+    """:func:`sft_track` with the solve's observation rows sharded over
+    ``group`` (``parallel.sharded.sft_solve_sharded``): the frame solve of
+    ``Config.parallel``.  The observation axis, min(max_keypoints,
+    max_map_points), must divide over the group."""
+    from defslam_tpu_torch.parallel import sharded
+
+    n_obs = min(cfg.orb.max_keypoints, points.capacity)
+    if n_obs % group.size:
+        raise ValueError(f"the sharded observation axis min(max_keypoints, max_map_points) = "
+                         f"{n_obs} must divide over {group.size} ranks")
+    data, sel, sel_mask = _sft_data_from_matches(points, matches, feats, tmpl, pose0, K, cfg)
+    res = sharded.sft_solve_sharded(group, data, cfg, reg_temp=reg_temp)
+    return _scatter_sft_result(res, sel, sel_mask, points.capacity, cfg)
+
+
+def _scatter_sft_result(res: sft.SfTResult, sel, sel_mask, p_cap: int,
+                        cfg: Config) -> sft.SfTResult:
+    """The per-observation outputs scattered back to the P point slots
+    (nothing to do when the observation axis is the point axis)."""
     if min(cfg.orb.max_keypoints, p_cap) == p_cap:
         return res
-    inlier = torch.zeros(p_cap, dtype=torch.bool, device=pose0.device)
+    dev = res.T.device
+    inlier = torch.zeros(p_cap, dtype=torch.bool, device=dev)
     inlier[sel] = res.inlier & sel_mask
-    chi2 = torch.full((p_cap,), float("inf"), device=pose0.device)
+    chi2 = torch.full((p_cap,), float("inf"), device=dev)
     chi2[sel] = res.chi2
     return res._replace(inlier=inlier, chi2=chi2)
 
@@ -166,12 +192,26 @@ def track_frame(img: torch.Tensor, points: PointStore, pose: torch.Tensor,
     """The per-frame path: predict, extract, project-match, SfT, repose the
     points and refresh their per-point angle and lifecycle counters.
     Returns (feats, matches, sft_result, new_points, stats)."""
+    return _track_frame(sft_track, img, points, pose, prev_pose, tmpl, K, cfg, window_scale)
+
+
+def track_frame_parallel(group, img: torch.Tensor, points: PointStore, pose: torch.Tensor,
+                         prev_pose: torch.Tensor, tmpl: meshmod.Template, K: torch.Tensor,
+                         cfg: Config, window_scale: float = 1.0):
+    """:func:`track_frame` with the SfT solve sharded over ``group``
+    (:func:`sft_track_sharded`), the frame path of ``Config.parallel``.
+    Extraction and matching run replicated on every rank.  Same outputs."""
+    return _track_frame(functools.partial(sft_track_sharded, group), img, points, pose,
+                        prev_pose, tmpl, K, cfg, window_scale)
+
+
+def _track_frame(solve, img, points, pose, prev_pose, tmpl, K, cfg: Config, window_scale):
     pred = motion_model_prediction(pose, prev_pose)
     feats = extract_features(img, cfg)
     matches = match_points_to_frame(
         points, pred, K, feats, cfg, window=window_scale * cfg.tracking.projection_window
     )
-    res = sft_track(points, matches, feats, tmpl, pred, K, cfg)
+    res = solve(points, matches, feats, tmpl, pred, K, cfg)
     new_points = reposition_points(points, res.nodes, cfg)
     matched = matches.kp_of_point >= 0
     kp = torch.clamp(matches.kp_of_point, 0, feats.capacity - 1)

@@ -246,14 +246,20 @@ def test_mono_orbslam_and_parallel_raise(tmp_path, monkeypatch):
     """``mono --orbslam`` raised until the rigid mode was ported; it now
     runs the port's RigidSystem and writes ``Trajectory.txt`` (held to the
     JAX package in tests/test_torch_rigid_system.py).  ``parallel.enabled``
-    still raises."""
+    raised until the multi-device path was ported; it now brings up a
+    world of 1 (held to the JAX package in tests/test_torch_parallel.py),
+    and ``shutdown`` takes it down."""
     seq = make_sequence(n_frames=3, height=120, width=160, max_amp=0.0)
     monkeypatch.setattr(datasets, "load_video",
                         lambda _src: ((np.asarray(f), t / 7.0) for t, f in enumerate(seq.frames)))
     assert cli.main(["mono", _port_yaml(tmp_path), "0", "--orbslam", "--device", "cpu"]) == 0
     assert (tmp_path / "port" / "Trajectory.txt").exists()
-    with pytest.raises(NotImplementedError, match="parallel"):
-        System(Config(parallel=ParallelConfig(enabled=True)), device="cpu")
+    s = System(Config(parallel=ParallelConfig(enabled=True)), device="cpu")
+    try:
+        assert s.group is not None and s.group.size == 1
+    finally:
+        s.shutdown()
+    assert not torch.distributed.is_initialized()
 
 
 # ---------------------------------------------------------------------- ct

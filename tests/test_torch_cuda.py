@@ -174,9 +174,9 @@ def test_readback_on_the_card(cuda_device):
     assert np.array_equal(a, np.arange(1000)) and np.array_equal(b, y.cpu().numpy())
 
 
-def _small_pipelined_system(cuda_device, **tracking):
+def _small_pipelined_system(cuda_device, parallel=False, keyframe_period=100, **tracking):
     from defslam_tpu_torch.config import (
-        CapacityConfig, Config, OrbConfig, SfTConfig, TrackingConfig,
+        CapacityConfig, Config, OrbConfig, ParallelConfig, SfTConfig, TrackingConfig,
     )
     from defslam_tpu_torch.io.synthetic import make_sequence
     from defslam_tpu_torch.system import System
@@ -184,8 +184,9 @@ def _small_pipelined_system(cuda_device, **tracking):
     seq = make_sequence(n_frames=8, height=120, width=160, max_amp=0.08)
     cfg = Config(camera=seq.camera, orb=OrbConfig(n_features=300, n_levels=3, max_keypoints=384),
                  sft=SfTConfig(lm_iterations=15),
-                 tracking=TrackingConfig(keyframe_period=100, **tracking),
-                 capacity=CapacityConfig(max_map_points=1024, max_keyframes=8))
+                 tracking=TrackingConfig(keyframe_period=keyframe_period, **tracking),
+                 capacity=CapacityConfig(max_map_points=1024, max_keyframes=8),
+                 parallel=ParallelConfig(enabled=parallel))
     frames = [torch.as_tensor(f, device=cuda_device) for f in seq.frames]
     return System(cfg, device=cuda_device), frames
 
@@ -208,6 +209,109 @@ def test_pipelined_dispatch_makes_no_host_wait(cuda_device):
     assert torch.is_tensor(pose) and pose.is_cuda
     s.flush()
     assert [m["state"] for m in s._metrics] == ["OK"] * 8 and s.n_rollbacks == 0
+
+
+@pytest.mark.cuda
+def test_parallel_frame_dispatch_makes_no_host_wait(cuda_device):
+    """Parallel mode at world 1 over NCCL: a frame without a keyframe,
+    after a legacy keyframe at frame 4, runs under
+    ``set_sync_debug_mode("error")`` (the all-reduces queue on the stream
+    and make the host wait for nothing)."""
+    from defslam_tpu_torch import parallel
+    from defslam_tpu_torch.config import Config
+
+    parallel.init_distributed(Config(), cuda_device, timeout=120)  # the System finds it up
+    s, frames = _small_pipelined_system(cuda_device, parallel=True, keyframe_period=4)
+    try:
+        assert s.group is not None and s.group.size == 1
+        for t in range(5):
+            s.track_monocular(frames[t], float(t))
+        torch.cuda.synchronize()
+        calls = s.group.n_all_reduce
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for t in range(5, 8):
+                pose = s.track_monocular(frames[t], float(t))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.is_tensor(pose) and pose.is_cuda
+        assert s.group.n_all_reduce > calls
+        s.flush()
+        assert [m["state"] for m in s._metrics] == ["OK"] * 8 and s.n_rollbacks == 0
+        assert [m["keyframe"] for m in s._metrics] == [True, False, False, False, True,
+                                                        False, False, False]
+    finally:
+        s.shutdown()
+    assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.cuda
+def test_sharded_sft_over_nccl_repeats_and_matches_the_cpu(cuda_device):
+    """``sft_solve_sharded`` at world 1 over NCCL, at full width (1536
+    observations on the default 10x10 template): two calls are bit-equal,
+    and the same call over gloo on the CPU agrees in pose and nodes within
+    1e-4, or within 3x the gap a 1e-7 relative perturbation of the start
+    nodes opens on the CPU where that is larger (on this flat template it
+    moves the nodes by 2.9e-4: rounding moves them along the solve's flat
+    directions), with >= 99% of the inlier gate equal."""
+    import datetime
+
+    from defslam_tpu_torch.config import Config
+    from defslam_tpu_torch.parallel import sharded
+
+    cfg = Config()
+    results = {}
+    for device, backend in ((cuda_device, "nccl"), (torch.device("cpu"), "gloo")):
+        torch.distributed.init_process_group(
+            backend, store=torch.distributed.HashStore(), world_size=1, rank=0,
+            timeout=datetime.timedelta(seconds=120))
+        try:
+            group = sharded.make_group(1)
+            data = _full_width_sft_data(device)
+            runs = [sharded.sft_solve_sharded(group, data, cfg) for _ in range(2)]
+            if device.type == "cpu":
+                noise = torch.as_tensor(np.random.default_rng(1).normal(0, 1e-7, (100, 3)),
+                                        dtype=torch.float32)
+                runs.append(sharded.sft_solve_sharded(
+                    group, data._replace(nodes0=data.nodes0 * (1 + noise)), cfg))
+            assert group.n_all_reduce > 0
+        finally:
+            torch.distributed.destroy_process_group()
+        for a, b in zip(runs[0], runs[1]):
+            assert torch.equal(a, b)
+        results[device.type] = runs
+    g, c = results["cuda"][0], results["cpu"][0]
+    probe = results["cpu"][2]
+    for k in ("T", "nodes"):
+        gap = (getattr(g, k).cpu() - getattr(c, k)).abs().max()
+        tol = max(1e-4, 3 * float((getattr(probe, k) - getattr(c, k)).abs().max()))
+        assert gap <= tol, (k, float(gap), tol)
+    assert (g.inlier.cpu() == c.inlier).float().mean() >= 0.99
+
+
+def _full_width_sft_data(device):
+    """1536 points embedded at random in the default 10x10 plane template,
+    seen from the identity with 0.5 px noise (seed 3)."""
+    from defslam_tpu_torch.geometry import camera as cam
+    from defslam_tpu_torch.template import mesh as meshmod
+    from defslam_tpu_torch.tracking import sft
+
+    topo = meshmod.grid_topology(10, 10)
+    dom = torch.tensor([-0.4, 0.4, -0.3, 0.3], device=device)
+    K = torch.tensor([[500.0, 0, 320.0], [0, 500.0, 240.0], [0, 0, 1.0]], device=device)
+    nodes = meshmod.grid_nodes_from_surface(
+        lambda u, v: torch.stack([u, v, torch.ones_like(u)], dim=-1), dom, topo)
+    rng = np.random.default_rng(3)
+    n = 1536
+    uvp = torch.as_tensor(np.stack([rng.uniform(-0.38, 0.38, n), rng.uniform(-0.28, 0.28, n)], 1),
+                          dtype=torch.float32, device=device)
+    facet, bary, _ = meshmod.embed_uv(uvp, dom, topo)
+    obs = cam.project(K, meshmod.facet_positions(nodes, topo, facet, bary)) + torch.as_tensor(
+        rng.normal(0, 0.5, (n, 2)), dtype=torch.float32, device=device)
+    return sft.data_from_template(
+        meshmod.make_template(nodes, topo), K, torch.eye(4, device=device), obs_uv=obs,
+        obs_face=facet, obs_bary=bary, obs_invsigma2=torch.ones(n, device=device),
+        obs_mask=torch.ones(n, dtype=torch.bool, device=device), n_kp=float(n))
 
 
 @pytest.mark.cuda

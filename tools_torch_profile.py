@@ -1,7 +1,8 @@
 """Where a tracked frame's and a keyframe step's time goes on the card, for
 the PyTorch port.
 
-    python3 tools_torch_profile.py [--frames 3] [--keyframe | --relocalize | --pipelined]
+    python3 tools_torch_profile.py [--frames 3] [--keyframe | --relocalize | --pipelined |
+                                    --parallel]
 
 Tracks the first frames of the same sequence as chip_smoke.py (the JAX
 package's full-size bench render, default Config, localization mode) on
@@ -37,6 +38,15 @@ dispatches half A, and the next, which dispatches half B) through to a
 ``flush``.  Per region: wall time, device busy time and share, kernel
 launches; per dispatch: its host time and its host waits on the card
 (``profiling.host_waits``).  Writes ``chiprun_out/profile_pipelined.json``.
+
+With ``--parallel`` it builds the SfT problem of a tracked frame (the
+default Config after ``WARM_FRAMES`` frames, 1536 observations) and
+profiles ``sft.solve`` on it against ``parallel.sharded.sft_solve_sharded``
+at world 1 over NCCL: per solve the wall time, device busy time and share,
+launches, top kernels and the top operators by host (self CPU) time; then
+the host ms of 5 rounds of the two solves and of the sharded one with its
+all-reduces taken out.
+Writes ``chiprun_out/profile_parallel.json``.
 """
 
 from __future__ import annotations
@@ -132,7 +142,7 @@ def profile_keyframe(seq, cfg: Config, smi: str) -> dict:
 def _profiled(fn, smi: str):
     """Host-clock wall time of ``fn`` (after a warm call, ending in a
     synchronize), then one more call under torch.profiler: device busy
-    time and share, launches, top kernels.  Returns (that dict, the
+    time and share, launches, top kernels, top operators by host time.  Returns (that dict, the
     profiler's device kernels)."""
     fn()
     torch.cuda.synchronize()
@@ -157,7 +167,67 @@ def _profiled(fn, smi: str):
         "kernel_launches": sum(int(e.count) for e in kernels),
         "top_kernels": [{"name": e.key[:120], "device_ms": _device_us(e) / 1e3,
                          "calls": int(e.count)} for e in top],
+        "top_host_ops": _host_ops(prof),
     }, kernels
+
+
+def profile_parallel(seq, cfg: Config, smi: str) -> dict:
+    """``sft.solve`` against the world-1 sharded solve on one frame's SfT
+    problem (see the module's docstring)."""
+    from defslam_tpu_torch import parallel
+    from defslam_tpu_torch.config import ParallelConfig
+    from defslam_tpu_torch.parallel import sharded
+    from defslam_tpu_torch.template import mesh as meshmod
+    from defslam_tpu_torch.tracking import sft
+
+    sys_ = System(cfg)
+    for t in range(WARM_FRAMES):
+        sys_.track_monocular(seq.frames[t], timestamp=float(t))
+        if t == 0:
+            sys_.activate_localization_mode()
+    img = torch.as_tensor(seq.frames[WARM_FRAMES], device=sys_.device)
+    pred = tracker.motion_model_prediction(sys_.pose, sys_.prev_pose)
+    feats = extract_features(img, cfg)
+    matches = tracker.match_points_to_frame(sys_.points, pred, sys_.K, feats, cfg)
+    data, _, _ = tracker._sft_data_from_matches(sys_.points, matches, feats, sys_.template, pred,
+                                                sys_.K, cfg)
+    topo = meshmod.grid_topology(cfg.mesh.nodes_u, cfg.mesh.nodes_v)
+    pcfg = Config(parallel=ParallelConfig(enabled=True))
+    parallel.init_distributed(pcfg, sys_.device, timeout=120)
+    try:
+        group = sharded.make_group(1)
+        out = {}
+        for name, fn in (("single", lambda: sft.solve(data, topo, cfg)),
+                         ("sharded", lambda: sharded.sft_solve_sharded(group, data, cfg))):
+            out[name] = _profiled(fn, smi)[0]
+        # host ms, median of 5, in turns: the single solve, the sharded one,
+        # and the sharded one with its all-reduces replaced by nothing (a
+        # world-1 all-reduce is the identity): what the collectives cost
+        hollow = sharded.Group()
+        hollow.all_reduce = lambda t: t
+        runs = {"single": [], "sharded": [], "sharded_no_collectives": []}
+        fns = {"single": lambda: sft.solve(data, topo, cfg),
+               "sharded": lambda: sharded.sft_solve_sharded(group, data, cfg),
+               "sharded_no_collectives": lambda: sharded.sft_solve_sharded(hollow, data, cfg)}
+        for _ in range(5):
+            for name, fn in fns.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                runs[name].append((time.perf_counter() - t0) * 1e3)
+        out["wall_ms_in_turns"] = runs
+    finally:
+        parallel.shutdown()
+    out["observations"] = int(data.obs_uv.shape[0])
+    return out
+
+
+def _host_ops(prof, n: int = 15) -> list[dict]:
+    """The operators with the most host (self CPU) time."""
+    evts = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)[:n]
+    return [{"name": e.key[:80], "self_cpu_ms": e.self_cpu_time_total / 1e3,
+             "calls": int(e.count)} for e in evts]
 
 
 def profile_pipelined(seq, frames: int, smi: str) -> dict:
@@ -232,6 +302,8 @@ def main() -> int:
                     help="profile one relocalization instead of tracked frames")
     ap.add_argument("--pipelined", action="store_true",
                     help="profile pipelined frames and a split keyframe (bench configuration)")
+    ap.add_argument("--parallel", action="store_true",
+                    help="profile a frame's SfT solve, single-device against sharded at world 1")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("tools_torch_profile: no CUDA device", file=sys.stderr)
@@ -251,6 +323,13 @@ def main() -> int:
         print(json.dumps(out), flush=True)
         os.makedirs("chiprun_out", exist_ok=True)
         with open(os.path.join("chiprun_out", "profile_pipelined.json"), "w") as f:
+            json.dump(out, f, indent=1)
+        return 0
+    if args.parallel:
+        out = profile_parallel(seq, cfg, smi)
+        print(json.dumps(out), flush=True)
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "profile_parallel.json"), "w") as f:
             json.dump(out, f, indent=1)
         return 0
     if args.relocalize:
