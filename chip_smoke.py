@@ -1,9 +1,12 @@
 """Drive the PyTorch port on one CUDA card and check it.
 
     python3 chip_smoke.py             # every phase
-    python3 chip_smoke.py --kernels   # phases 1-3 only (no ``ok`` line)
+    python3 chip_smoke.py --kernels   # phases 1-3 only, B1 at every shape (no ``ok`` line)
     python3 chip_smoke.py --rigid     # phases 1-3 for B1, then phase 12 (no ``ok`` line)
     python3 chip_smoke.py --parallel  # phases 1-3, then phase 13 (no ``ok`` line)
+    python3 chip_smoke.py --longhaul  # phases 1-3 for both kernels, then phase 14 (no ``ok`` line)
+
+A phase run alone writes ``chiprun_out/chip_smoke_<phase>.json``.
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -136,7 +139,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
    chain's and the chain-plus-re-anchor's CUDA-event ms, all-reduce calls
    and bytes per frame, and the SfT's host ms at world 1 and 2.  Every
    collective has a 180 s timeout;
-14. print a ``timing`` line, one ``{"kernels": [...]}`` line, then the last
+14. the JAX package's long-haul run at full scale (tests/test_stress_longhaul.py
+   with DEFSLAM_STRESS_FULL=1, BASELINE.md:137): 240 frames of a 640x480
+   render (handheld 6-DoF motion over 0.9 world units, three deformation
+   modes, brightness drift, frames 117-121 blank, seed 9), 1200 features, 4
+   levels, 1536 keypoints, 4096 points, 50 LM iterations, a keyframe every
+   10 frames into 12 slots, the default protocol (pipelined, depth 2,
+   fused keyframes).  The render runs in pieces on worker processes
+   started before the build and is gathered after it (``phase_s``'s
+   ``longhaul_render_wait``), so that it overlaps the build only; a System
+   of its own takes 12 warm-up frames first.  It fails if an occluded frame tracks, if the run
+   has not recovered within 3 frames of the scene's return or loses a
+   frame after that, on fewer than 12 evictions or 3 template swaps, a
+   template anchored at frame <= 80, a last third of inliers at or under
+   0.3x the first third's, fewer B1 launches than tracked frames, no B1
+   launch at 1536x18432 inside a relocalization, B2 launched other than
+   twice per keyframe step, or device memory after frame 240 more than
+   32 MB over its value after frame 48.  It prints ATE and the final
+   median depth error beside the JAX package's full-scale gates on its TPU
+   (< 0.20, < 0.10; not gated here), frame p50 / p95 / max over frames
+   24-48 and 216-240, the keyframe, LOST and recovered frames' ms,
+   ``relocalize_ms`` at 12 slots, rollbacks, host RSS and
+   ``max_memory_allocated``;
+15. print a ``timing`` line, one ``{"kernels": [...]}`` line, then the last
    line ``{"ok": true, "device": {...}}``.
 
 Every phase before the pipelined slice runs the synchronous protocol
@@ -152,6 +177,7 @@ import dataclasses
 import datetime
 import json
 import math
+import multiprocessing
 import os
 import shutil
 import statistics
@@ -160,14 +186,15 @@ import subprocess
 import sys
 import time
 import zlib
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
 
 from defslam_tpu_torch import parallel, profiling
-from defslam_tpu_torch.config import (CapacityConfig, Config, MeshConfig, OrbConfig,
-                                      ParallelConfig, SfTConfig, TrackingConfig)
-from defslam_tpu_torch.io.synthetic import _gaussian_blur, make_sequence
+from defslam_tpu_torch.config import (CapacityConfig, Config, MappingConfig, MeshConfig,
+                                      OrbConfig, ParallelConfig, SfTConfig, TrackingConfig)
+from defslam_tpu_torch.io.synthetic import SyntheticSequence, _gaussian_blur, make_sequence
 from defslam_tpu_torch.frontend import extract_features
 from defslam_tpu_torch.geometry import camera as cam
 from defslam_tpu_torch.groundtruth import gt as gtmod
@@ -814,8 +841,9 @@ class RelocProbe:
     and its time between CUDA events (host clock on the CPU).  Reading the
     outcome is a host read the System makes right after anyway."""
 
-    def __init__(self):
+    def __init__(self, shapes: B1Shapes | None = None):
         self.calls: list[dict] = []
+        self.shapes = shapes  # with one, each call also lists its B1 shapes
 
     def __enter__(self):
         self._real = pose_opt.relocalize
@@ -823,6 +851,7 @@ class RelocProbe:
         def probe(feats, kfs, points, K, cfg):
             cuda = feats.xy.is_cuda
             before = cuda_build.LAUNCHES["hamming_matrix"]
+            n0 = len(self.shapes.shapes) if self.shapes else 0
             if cuda:
                 a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 a.record()
@@ -834,7 +863,8 @@ class RelocProbe:
             self.calls.append(dict(
                 ok=bool(ok), n_inliers=int(n),
                 b1_launches=cuda_build.LAUNCHES["hamming_matrix"] - before,
-                ms=a.elapsed_time(b) if cuda else (time.perf_counter() - t0) * 1e3))
+                ms=a.elapsed_time(b) if cuda else (time.perf_counter() - t0) * 1e3,
+                **({"b1_shapes": self.shapes.shapes[n0:]} if self.shapes else {})))
             return ok, T, n
 
         pose_opt.relocalize = probe
@@ -2405,11 +2435,225 @@ def parallel_phase(seq, cfg: Config, dev, single=None) -> dict:
     return out
 
 
-def main(kernels_only: bool = False, rigid_only: bool = False,
-         parallel_only: bool = False) -> int:
+LONGHAUL_RENDER = dict(n_frames=240, height=480, width=640, max_amp=0.07, camera_motion=0.9,
+                       seed=9, occlusion=(117, 121), rotation_deg=16, deform_modes=3,
+                       brightness_drift=0.1)
+LONGHAUL_SLOTS = 12
+LONGHAUL_SHAPE = (1536, LONGHAUL_SLOTS * 1536)  # relocalization against the full 12-slot store
+LONGHAUL_WARM = 12  # warm-up frames (a keyframe at 10) on a System of their own
+LONGHAUL_WINDOWS = ((24, 48), (216, 240))  # frame-time windows [a, b)
+LONGHAUL_MEM_AT = (48, 240)  # device memory read after these frames ...
+LONGHAUL_MEM_GROWTH = 32 * 2**20  # ... and allowed to grow by at most this
+# the JAX package's full-scale gates, met on its TPU (BASELINE.md:137);
+# printed beside the card's numbers, not gated here
+LONGHAUL_TPU_GATES = {"ate": 0.20, "median_depth_error": 0.10}
+
+
+def longhaul_config(camera) -> Config:
+    """tests/test_stress_longhaul.py at full scale (DEFSLAM_STRESS_FULL=1,
+    BASELINE.md:137): 1200 features, 4 levels, 1536 keypoints, 4096
+    points, 50 LM iterations, a keyframe every 10 frames, 12 keyframe
+    slots; the default protocol (pipelined, depth 2, fused keyframes)."""
+    return Config(camera=camera,
+                  orb=OrbConfig(n_features=1200, n_levels=4, max_keypoints=1536),
+                  sft=SfTConfig(lm_iterations=50), tracking=TrackingConfig(keyframe_period=10),
+                  capacity=CapacityConfig(max_map_points=4096, max_keyframes=LONGHAUL_SLOTS),
+                  mapping=MappingConfig(points_to_template=70, chi_limit=0.5))
+
+
+def start_longhaul_render() -> tuple[ProcessPoolExecutor, list]:
+    """The long-haul render (~0.9 s a 640x480 frame in numpy) in pieces of
+    8 frames on spawned worker processes (the caller holds a CUDA context),
+    started before the build so that the render overlaps it and nothing
+    else."""
+    pool = ProcessPoolExecutor(max(1, min(5, (os.cpu_count() or 2) - 3)),
+                               mp_context=multiprocessing.get_context("spawn"))
+    n = LONGHAUL_RENDER["n_frames"]
+    return pool, [pool.submit(make_sequence, start=a, stop=min(a + 8, n), **LONGHAUL_RENDER)
+                  for a in range(0, n, 8)]
+
+
+def gather_longhaul_render(pool: ProcessPoolExecutor, parts: list) -> SyntheticSequence:
+    """The pieces as one sequence, bit-equal to one ``make_sequence`` call."""
+    parts = [p.result() for p in parts]
+    pool.shutdown()
+    return dataclasses.replace(parts[0], **{
+        k: np.concatenate([getattr(p, k) for p in parts])
+        for k in ("frames", "depths", "poses", "amps", "mode_amps")})
+
+
+def _window_stats(frame_ms, a: int, b: int) -> dict:
+    w = frame_ms[a:b]
+    return {"frames": [a, b], "p50_ms": statistics.median(w),
+            "p95_ms": float(np.percentile(w, 95)), "max_ms": max(w)}
+
+
+def _host_rss_mb() -> float:
+    with open("/proc/self/status") as f:
+        kb = next(int(line.split()[1]) for line in f if line.startswith("VmRSS:"))
+    return kb / 1024.0
+
+
+def longhaul_phase(seq: SyntheticSequence, dev) -> dict:
+    """Phase 14: the JAX package's long-haul run at full scale under the
+    default protocol, see the module's docstring."""
+    n = len(seq.frames)
+    occ = LONGHAUL_RENDER["occlusion"]
+    cfg = longhaul_config(seq.camera)
+    warm = System(cfg, device=dev)
+    for t in range(LONGHAUL_WARM):
+        warm.track_monocular(seq.frames[t], timestamp=float(t))
+    warm.flush()
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    s = System(cfg, device=dev)
+    steps = []
+    real_step = mapper.keyframe_step
+
+    def counted_step(*a, **k):
+        steps.append(s.frame_id)
+        return real_step(*a, **k)
+
+    frame_ms, relocs, mem = [], [], {}
+    shapes = B1Shapes()
+    mapper.keyframe_step = counted_step
+    cuda_build.LAUNCHES.clear()
+    try:
+        with RelocProbe(shapes) as probe:
+            for t in range(n):
+                n0 = len(probe.calls)
+                t0 = time.perf_counter()
+                s.track_monocular(seq.frames[t], timestamp=float(t))
+                frame_ms.append((time.perf_counter() - t0) * 1e3)
+                relocs.append(probe.calls[n0:])
+                if t + 1 in LONGHAUL_MEM_AT:
+                    mem[t + 1] = {"allocated": torch.cuda.memory_allocated(),
+                                  "reserved": torch.cuda.memory_reserved(),
+                                  "host_rss_mb": _host_rss_mb()}
+            t0 = time.perf_counter()
+            s.flush()
+            torch.cuda.synchronize()
+            frame_ms[-1] += (time.perf_counter() - t0) * 1e3
+            # a relocalization's replay of the last frame comes in the flush
+            relocs[-1] = relocs[-1] + probe.calls[sum(len(r) for r in relocs):]
+    finally:
+        mapper.keyframe_step = real_step
+        shapes.restore()
+    launches = dict(cuda_build.LAUNCHES)
+
+    m = s._metrics
+    states = [r["state"] for r in m]
+    by_t = {int(r["t"]): r for r in m}
+    ok = [r for r in m if r["state"] == "OK" and r["inliers"] > 0]
+    first_third = statistics.median([r["inliers"] for r in ok[: len(ok) // 3]])
+    last_third = statistics.median([r["inliers"] for r in ok[-len(ok) // 3:]])
+    n_kf = sum(1 for r in m if r["keyframe"])
+    swaps = sum(1 for r in m[1:] if r["template"])
+    fids = s.kfs.frame_id.cpu().numpy()
+    anchor = int(fids[s.template_ref_kf])
+    recovered = next((t for t in range(occ[1] + 1, n) if by_t[t]["state"] == "OK"), None)
+    tracked = sum(1 for r in m[1:] if r["state"] == "OK")
+    reloc_calls = [c for r in relocs for c in r]
+    reloc_shapes = sorted({tuple(sh) for c in reloc_calls for sh in c["b1_shapes"]})
+    ate = gtmod.ate_rmse_trajectory(s.trajectory, seq.poses)
+    depth_err, depth_n = gtmod.system_depth_error(s, seq.depths[n - 1])
+    feats = extract_features(torch.as_tensor(seq.frames[occ[1] + 1], device=dev), cfg)
+    reloc_ms = cuda_ms(lambda: pose_opt.relocalize(feats, s.kfs, s.points, s.K, cfg),
+                       reps=5, warmup=1)
+    kf_frames = [r["frame"] for r in m[1:] if r["keyframe"]]
+    lost = [t for t in range(n) if by_t[t]["state"] != "OK"]
+    reloc_ok = [t for t, r in enumerate(relocs) if any(c["ok"] for c in r)]
+    out = {
+        "states_not_ok": lost, "recovered_at": recovered, "rollbacks": s.n_rollbacks,
+        "keyframes": n_kf, "evictions": n_kf - LONGHAUL_SLOTS, "keyframe_frames": kf_frames,
+        "keyframe_steps": len(steps), "template_swaps": swaps, "anchor_frame": anchor,
+        "inliers_first_third": first_third, "inliers_last_third": last_third,
+        "tracked_frames": tracked, "launches": launches,
+        "relocalize_calls": len(reloc_calls), "relocalized_ok_frames": reloc_ok,
+        "relocalize_b1_shapes": [list(x) for x in reloc_shapes],
+        "relocalize_call_ms": [c["ms"] for c in reloc_calls],
+        "relocalize_ms": reloc_ms, "ate": ate, "median_depth_error": depth_err,
+        "depth_points": depth_n, "tpu_gates_met_by_the_jax_package": LONGHAUL_TPU_GATES,
+        "windows": [_window_stats(frame_ms, a, b) for a, b in LONGHAUL_WINDOWS],
+        "keyframe_frame_ms": [frame_ms[t] for t in kf_frames],
+        "lost_frame_ms": [frame_ms[t] for t in range(occ[0], occ[1] + 1)],
+        "relocalized_frame_ms": [frame_ms[t] for t in reloc_ok],
+        "recovered_frame_ms": frame_ms[recovered] if recovered is not None else None,
+        "memory": mem,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "host_rss_mb": _host_rss_mb(), "frame_ms": frame_ms,
+    }
+    print("longhaul", json.dumps({k: v for k, v in out.items() if k != "frame_ms"}), flush=True)
+    print(f"longhaul accuracy: ATE {ate} (the JAX package met < {LONGHAUL_TPU_GATES['ate']} on "
+          f"its TPU), median depth error {depth_err} (< {LONGHAUL_TPU_GATES['median_depth_error']} "
+          f"on its TPU); not gated here", flush=True)
+
+    if any(by_t[t]["state"] == "OK" for t in range(occ[0], occ[1] + 1)):
+        raise SystemExit(f"longhaul: an occluded frame tracked: {states[occ[0]:occ[1] + 1]}")
+    if recovered is None or recovered > occ[1] + 3:
+        raise SystemExit(f"longhaul: no recovery within 3 frames of the scene's return "
+                         f"(recovered at {recovered})")
+    if any(t > recovered for t in lost):
+        raise SystemExit(f"longhaul: frames lost after the recovery: {lost}")
+    if n_kf - LONGHAUL_SLOTS < 12 or int(s.kfs.valid.sum()) != LONGHAUL_SLOTS:
+        raise SystemExit(f"longhaul: {n_kf} keyframes in {LONGHAUL_SLOTS} slots: fewer than "
+                         f"12 evictions")
+    if swaps < 3:
+        raise SystemExit(f"longhaul: {swaps} template swaps (fewer than 3)")
+    if anchor <= n // 3:
+        raise SystemExit(f"longhaul: the template is anchored at frame {anchor} (<= {n // 3})")
+    if not last_third > 0.3 * first_third:
+        raise SystemExit(f"longhaul: inliers decayed {first_third} -> {last_third}")
+    if launches.get("hamming_matrix", 0) < tracked:
+        raise SystemExit(f"longhaul: hamming_matrix launched {launches.get('hamming_matrix', 0)} "
+                         f"times for {tracked} tracked frames")
+    if list(LONGHAUL_SHAPE) not in out["relocalize_b1_shapes"]:
+        raise SystemExit(f"longhaul: no B1 launch at {LONGHAUL_SHAPE} in relocalization "
+                         f"({out['relocalize_b1_shapes']})")
+    if launches.get("windowed_match", 0) != 2 * len(steps):
+        raise SystemExit(f"longhaul: windowed_match launched {launches.get('windowed_match', 0)} "
+                         f"times for {len(steps)} keyframe steps (2 each)")
+    growth = mem[LONGHAUL_MEM_AT[1]]["allocated"] - mem[LONGHAUL_MEM_AT[0]]["allocated"]
+    if growth > LONGHAUL_MEM_GROWTH:
+        raise SystemExit(f"longhaul: device memory grew by {growth} B from frame "
+                         f"{LONGHAUL_MEM_AT[0]} to {LONGHAUL_MEM_AT[1]}")
+    for T in (s.trajectory[-1][1], s.pose.cpu().numpy()):
+        if not np.isfinite(T).all() or T.shape != (4, 4):
+            raise SystemExit("longhaul: the final pose is not a finite 4x4 matrix")
+    return out
+
+
+def main(mode: str = "full") -> int:
+    """``mode``: "full", "kernels", or a phase of ``ALONE``."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    render = start_longhaul_render() if mode in ("full", "longhaul") else None
+    try:
+        return run(mode, render)
+    finally:
+        if render is not None:
+            render[0].shutdown(cancel_futures=True)
+
+
+# B1's shapes beyond check_hamming's, checked and timed against the plain
+# version: key in the kernels line -> (shape, seed, what calls B1 there)
+B1_SHAPES = {"relocalization_shape": (RELOC_SHAPE, 24, "relocalization"),
+             "rigid_shape": (RIGID_SHAPE, 25, "rigid tracking"),
+             "longhaul_shape": (LONGHAUL_SHAPE, 26, "long-haul relocalization")}
+# the phases that run alone after the kernel checks: flag -> (the phase,
+# called with the bench render, its Config, the device and the long-haul
+# render; B1's extra shapes; whether B2 is checked)
+ALONE = {"rigid": (lambda seq, cfg, dev, lh: rigid_phase(dev), ("rigid_shape",), False),
+         "parallel": (lambda seq, cfg, dev, lh: parallel_phase(seq, cfg, dev), (), True),
+         "longhaul": (lambda seq, cfg, dev, lh: longhaul_phase(lh, dev), ("longhaul_shape",), True)}
+
+
+def run(mode: str, render) -> int:
+    """The phases (see the module's docstring); ``render`` is the long-haul
+    phase's render under way."""
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2448,46 +2692,36 @@ def main(kernels_only: bool = False, rigid_only: bool = False,
     rates = card_rates()
     print("card_rates", json.dumps(rates), flush=True)
     phase_done("build")
-    if parallel_only:
-        kern_h = check_hamming(dev, rates)
-        kern_w = check_windowed_match(cfg, dev, rates)
-        phase_done("kernels")
-        torch.set_num_threads(max(1, os.cpu_count() or 1))
-        par = parallel_phase(seq, cfg, dev)
-        phase_done("parallel")
-        for k, name in ((kern_h, "hamming_matrix"), (kern_w, "windowed_match")):
-            k["launches_by_path"] = {"parallel": par["launches"].get(name, 0)}
-            k["launches"] = k["launches_by_path"]["parallel"]
-        print("phase_s", json.dumps(phase_s), flush=True)
-        os.makedirs("chiprun_out", exist_ok=True)
-        with open(os.path.join("chiprun_out", "chip_smoke_parallel.json"), "w") as f:
-            json.dump({"nvidia_smi": smi, "kernels": [kern_h, kern_w], "parallel": par,
-                       "phase_s": phase_s}, f, indent=1, default=str)
+    longhaul_seq = None
+    if render is not None:
+        longhaul_seq = gather_longhaul_render(*render)
+        phase_done("longhaul_render_wait")
+
+    kern_h = check_hamming(dev, rates)
+    for key in ALONE[mode][1] if mode in ALONE else B1_SHAPES:
+        kern_h[key] = hamming_at_shape(dev, *B1_SHAPES[key])
+    kernels = [kern_h]
+    if mode not in ALONE or ALONE[mode][2]:
+        kernels.append(check_windowed_match(cfg, dev, rates))
+    phase_done("kernels")
+    if mode == "kernels":
         print(smi, flush=True)
-        print(json.dumps({"kernels": [kern_h, kern_w]}), flush=True)
+        print(json.dumps({"kernels": kernels}), flush=True)
         return 0
-    if rigid_only:
-        kern_h = check_hamming(dev, rates)
-        kern_h["rigid_shape"] = hamming_at_shape(dev, RIGID_SHAPE, 25, "rigid tracking")
-        phase_done("kernels")
+    if mode in ALONE:
         torch.set_num_threads(max(1, os.cpu_count() or 1))
-        rigid = rigid_phase(dev)
-        phase_done("rigid")
+        out = ALONE[mode][0](seq, cfg, dev, longhaul_seq)
+        phase_done(mode)
+        for k in kernels:
+            k["launches_by_path"] = {mode: out["launches"].get(k["name"], 0)}
+            k["launches"] = k["launches_by_path"][mode]
         print("phase_s", json.dumps(phase_s), flush=True)
         os.makedirs("chiprun_out", exist_ok=True)
-        with open(os.path.join("chiprun_out", "chip_smoke_rigid.json"), "w") as f:
-            json.dump({"nvidia_smi": smi, "kernel": kern_h, "rigid": rigid, "phase_s": phase_s}, f,
+        with open(os.path.join("chiprun_out", f"chip_smoke_{mode}.json"), "w") as f:
+            json.dump({"nvidia_smi": smi, "kernels": kernels, mode: out, "phase_s": phase_s}, f,
                       indent=1, default=str)
         print(smi, flush=True)
-        return 0
-    kern_h = check_hamming(dev, rates)
-    kern_h["relocalization_shape"] = hamming_at_shape(dev, RELOC_SHAPE, 24, "relocalization")
-    kern_h["rigid_shape"] = hamming_at_shape(dev, RIGID_SHAPE, 25, "rigid tracking")
-    kern_w = check_windowed_match(cfg, dev, rates)
-    phase_done("kernels")
-    if kernels_only:
-        print(smi, flush=True)
-        print(json.dumps({"kernels": [kern_h, kern_w]}), flush=True)
+        print(json.dumps({"kernels": kernels}), flush=True)
         return 0
 
     # ---- tracking slice
@@ -2550,6 +2784,8 @@ def main(kernels_only: bool = False, rigid_only: bool = False,
     phase_done("rigid")
     par = parallel_phase(seq, cfg, dev, single=(gpu_map, map_frame_s))
     phase_done("parallel")
+    longhaul = longhaul_phase(longhaul_seq, dev)
+    phase_done("longhaul")
     timing.update({
         "relocalize_ms": reloc["relocalize_ms"],
         "relocalize_call_ms": reloc["relocalize_call_ms"],
@@ -2572,6 +2808,10 @@ def main(kernels_only: bool = False, rigid_only: bool = False,
             "frame_p50_ms", "frame_max_ms", "single_frame_p50_ms", "single_keyframe_frame_ms", "keyframe_frame_ms", "keyframe_ms",
             "keyframe_chain_ms", "sft_world1_ms", "sft_world2_ms", "all_reduce_calls_per_frame",
             "all_reduce_bytes_per_frame")},
+        "longhaul": {k: longhaul[k] for k in (
+            "windows", "keyframe_frame_ms", "lost_frame_ms", "relocalized_frame_ms",
+            "recovered_frame_ms", "relocalize_ms", "rollbacks", "host_rss_mb",
+            "max_memory_allocated", "memory", "ate", "median_depth_error")},
     })
     print("timing", json.dumps(timing), flush=True)
 
@@ -2579,9 +2819,9 @@ def main(kernels_only: bool = False, rigid_only: bool = False,
              "relocalization": reloc["launches"], "occlusion_gt": occl["launches"],
              "pipelined": pipe["launches"], "apps": apps["launches"], "rigid": rigid["launches"],
              "rigid_loop": rigid["loop"]["card"]["launches"], "rigid_cli": rigid["cli"]["launches"],
-             "parallel": par["launches"]}
-    for k, name in ((kern_h, "hamming_matrix"), (kern_w, "windowed_match")):
-        k["launches_by_path"] = {p: counts.get(name, 0) for p, counts in paths.items()}
+             "parallel": par["launches"], "longhaul": longhaul["launches"]}
+    for k in kernels:
+        k["launches_by_path"] = {p: counts.get(k["name"], 0) for p, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
     kern_h["launches_inside_relocalize"] = sum(
         c["b1_launches"] for c in reloc["calls"]) + sum(
@@ -2605,13 +2845,12 @@ def main(kernels_only: bool = False, rigid_only: bool = False,
         if not np.isfinite(pose).all() or pose.shape != (4, 4):
             raise SystemExit("final pose is not a finite 4x4 matrix")
 
-    kernels = [kern_h, kern_w]
     reloc.pop("gpu")
     out = {"nvidia_smi": smi, "build_s": build_s, "kernels": kernels, "timing": timing,
            "frames": rows, "mapping_frames": map_rows, "mapping_diags": gpu_map.map_diags,
            "keyframe_card_vs_cpu": kf_row, "relocalization": reloc, "occlusion": occl,
            "stereo_card_vs_cpu": stereo, "pipelined": pipe, "apps": apps, "rigid": rigid,
-           "parallel": par, "phase_s": phase_s}
+           "parallel": par, "longhaul": longhaul, "phase_s": phase_s}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(out, f, indent=1)
@@ -2626,5 +2865,5 @@ def main(kernels_only: bool = False, rigid_only: bool = False,
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-worker"]:
         sys.exit(parallel_worker(int(sys.argv[2]), *sys.argv[3:7]))
-    sys.exit(main(kernels_only="--kernels" in sys.argv[1:], rigid_only="--rigid" in sys.argv[1:],
-                  parallel_only="--parallel" in sys.argv[1:]))
+    flags = [a[2:] for a in sys.argv[1:] if a[2:] in ("kernels", *ALONE)]
+    sys.exit(main(flags[0] if flags else "full"))

@@ -129,6 +129,36 @@ def ate_rmse_trajectory(trajectory, gt_poses: np.ndarray) -> float:
     return ate_rmse(est, gt_poses[idx])
 
 
+def median_depth_error(pc: np.ndarray, uv: np.ndarray, valid: np.ndarray, facet: np.ndarray,
+                       depth_gt: np.ndarray) -> tuple[float, int]:
+    """The final structure's median relative depth error, as the JAX
+    package's long-haul test computes it (tests/test_stress_longhaul.py::
+    test_final_accuracy_gates): over the live embedded points in front of
+    the camera that project inside the GT depth map, |s z - z_gt| / z_gt
+    with s the median of z_gt / z.  ``pc`` (N, 3) camera-frame points,
+    ``uv`` (N, 2) their pixels.  Returns (error, points used)."""
+    pc, uv = np.asarray(pc), np.asarray(uv)
+    ok = np.asarray(valid) & (np.asarray(facet) >= 0) & (pc[:, 2] > 1e-6)
+    hh, ww = depth_gt.shape
+    x = np.clip(uv[:, 0].round().astype(int), 0, ww - 1)
+    y = np.clip(uv[:, 1].round().astype(int), 0, hh - 1)
+    inb = (uv[:, 0] >= 0) & (uv[:, 0] < ww) & (uv[:, 1] >= 0) & (uv[:, 1] < hh)
+    m = ok & inb
+    gt = depth_gt[y[m], x[m]]
+    z = pc[m, 2]
+    s = np.median(gt / np.maximum(z, 1e-9))
+    return float(np.median(np.abs(s * z - gt) / np.maximum(gt, 1e-9))), int(m.sum())
+
+
+def system_depth_error(system, depth_gt: np.ndarray) -> tuple[float, int]:
+    """:func:`median_depth_error` of a System's map in its current pose."""
+    pc = se3.transform(system.pose, system.points.xyz)
+    uv = cam.project(system.K, pc)
+    return median_depth_error(pc.cpu().numpy(), uv.cpu().numpy(),
+                              system.points.valid.cpu().numpy(),
+                              system.points.facet.cpu().numpy(), np.asarray(depth_gt))
+
+
 class GroundTruthEvaluator:
     """Per-frame GT evaluation and the reference-format result files."""
 

@@ -119,8 +119,15 @@ def make_sequence(
     rotation_deg: float = 0.0,
     deform_modes: int = 1,
     brightness_drift: float = 0.0,
+    start: int = 0,
+    stop: int | None = None,
 ) -> SyntheticSequence:
     """Render a deforming textured surface.
+
+    ``start`` / ``stop`` render only frames [start, stop) of the
+    ``n_frames``-frame sequence (the arrays then hold those frames): each
+    frame depends only on its index and the arguments, so the pieces are
+    bit-equal to the same frames of one call.
 
     camera_motion > 0 adds a lateral camera translation of that total length
     (world units) over the sequence, exposing new surface area — the trigger
@@ -163,10 +170,11 @@ def make_sequence(
     u = (px - cam.cx) / cam.fx
     v = (py - cam.cy) / cam.fy
 
-    frames = np.zeros((n_frames, height, width), np.float32)
+    stop = n_frames if stop is None else stop
+    frames = np.zeros((stop - start, height, width), np.float32)
     frames_r = np.zeros_like(frames) if baseline > 0 else None
     depths = np.zeros_like(frames)
-    poses = np.tile(np.eye(4, dtype=np.float32), (n_frames, 1, 1))
+    poses = np.tile(np.eye(4, dtype=np.float32), (stop - start, 1, 1))
     t_idx = np.arange(n_frames)
     mode_amps = np.zeros((n_frames, 3), np.float32)
     mode_amps[:, 0] = max_amp * np.sin(t_idx / 6.0)
@@ -174,7 +182,7 @@ def make_sequence(
         mode_amps[:, 1] = 0.6 * max_amp * np.sin(t_idx / 2.7 + 1.0)
     if deform_modes >= 3:
         mode_amps[:, 2] = 0.4 * max_amp * np.sin(t_idx / 4.3 + 2.0)
-    amps = mode_amps[:, 0]
+    amps = mode_amps[start:stop, 0]
 
     yaw_max = 0.5 * np.deg2rad(rotation_deg)  # peak-to-peak -> amplitude
 
@@ -205,7 +213,7 @@ def make_sequence(
         )
         return img, lam
 
-    for t in range(n_frames):
+    for i, t in enumerate(range(start, stop)):
         # camera center moves along +x in world; handheld attitude is an
         # oscillating yaw/pitch/roll on incommensurate frequencies
         cx_w = camera_motion * t / max(n_frames - 1, 1)
@@ -219,27 +227,27 @@ def make_sequence(
             )
         else:
             R_wc = np.eye(3, dtype=np.float32)
-        frames[t], depths[t] = render(C, R_wc, mode_amps[t])
+        frames[i], depths[i] = render(C, R_wc, mode_amps[t])
         if brightness_drift > 0:
             gain = 1.0 + brightness_drift * np.sin(
                 2.0 * np.pi * t / max(n_frames - 1, 1)
             )
-            frames[t] = np.clip(frames[t] * gain, 0.0, 255.0)
+            frames[i] = np.clip(frames[i] * gain, 0.0, 255.0)
         if frames_r is not None:
-            frames_r[t], _ = render(
+            frames_r[i], _ = render(
                 C + R_wc @ np.asarray([baseline, 0.0, 0.0], np.float32),
                 R_wc, mode_amps[t],
             )
             if brightness_drift > 0:
-                frames_r[t] = np.clip(frames_r[t] * gain, 0.0, 255.0)
+                frames_r[i] = np.clip(frames_r[i] * gain, 0.0, 255.0)
         # world->camera: R_cw = R_wc^T, t = -R_cw @ C
-        poses[t, :3, :3] = R_wc.T
-        poses[t, :3, 3] = -R_wc.T @ C
+        poses[i, :3, :3] = R_wc.T
+        poses[i, :3, 3] = -R_wc.T @ C
         if occlusion is not None and occlusion[0] <= t <= occlusion[1]:
-            frames[t] = 128.0  # featureless: FAST finds nothing
+            frames[i] = 128.0  # featureless: FAST finds nothing
             if frames_r is not None:
-                frames_r[t] = 128.0
+                frames_r[i] = 128.0
     return SyntheticSequence(
         frames=frames, depths=depths, poses=poses, amps=amps, camera=cam,
-        frames_right=frames_r, mode_amps=mode_amps,
+        frames_right=frames_r, mode_amps=mode_amps[start:stop],
     )

@@ -427,9 +427,11 @@ class System:
                 if not self._finalize_pending():
                     # an in-flight frame failed: the state was rolled back and
                     # the queue replayed; this frame's dispatch used stale
-                    # state, and a replay that ended LOST needs the ladder
+                    # state.  As in the JAX package, the frame stays
+                    # pipelined even when the replay ended LOST: it is
+                    # committed optimistically (a keyframe too) and
+                    # validated by the next call
                     out = self._track_frame(img)
-                    pipelined = pipelined and self.state == TrackingState.OK
         # the keyframe step's diagnostics, if they have landed (no wait: no
         # consumer needs them before the next keyframe)
         self._finalize_pending_map(force=False)
