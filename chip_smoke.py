@@ -5,6 +5,7 @@
     python3 chip_smoke.py --rigid     # phases 1-3 for B1, then phase 12 (no ``ok`` line)
     python3 chip_smoke.py --parallel  # phases 1-3, then phase 13 (no ``ok`` line)
     python3 chip_smoke.py --longhaul  # phases 1-3 for both kernels, then phase 14 (no ``ok`` line)
+    python3 chip_smoke.py --multicard # phases 1-3, then phase 15 on 4 cards (no ``ok`` line)
 
 A phase run alone writes ``chiprun_out/chip_smoke_<phase>.json``.
 
@@ -137,8 +138,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    them.  It
    prints the parallel frame p50 / max, the keyframe frames' ms, their
    chain's and the chain-plus-re-anchor's CUDA-event ms, all-reduce calls
-   and bytes per frame, and the SfT's host ms at world 1 and 2.  Every
-   collective has a 180 s timeout;
+   and bytes per frame, and the SfT's host ms at world 1 and 2.  Last,
+   the synth app (``cli synth``, 12 frames at 320x240, the default Config,
+   ``parallel.enabled``, ``n_devices`` 1) through ``parallel.launch`` at
+   world 1 over NCCL: its rank-0 result files must equal those of the
+   same app run in this process, byte for byte.  Every collective has a
+   180 s timeout;
 14. the JAX package's long-haul run at full scale (tests/test_stress_longhaul.py
    with DEFSLAM_STRESS_FULL=1, BASELINE.md:137): 240 frames of a 640x480
    render (handheld 6-DoF motion over 0.9 world units, three deformation
@@ -161,7 +166,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
    24-48 and 216-240, the keyframe, LOST and recovered frames' ms,
    ``relocalize_ms`` at 12 slots, rollbacks, host RSS and
    ``max_memory_allocated``;
-15. print a ``timing`` line, one ``{"kernels": [...]}`` line, then the last
+15. only with ``--multicard``, which needs 4 cards: the multi-device
+   System at world 4 over NCCL, one rank per card.  It prints each card's
+   name and power limit and ``nvidia-smi topo -m``; holds B1 and B2
+   against their plain versions on cards 1-3 at phase 3's cases (card 0
+   is phase 3's); runs the tracking slice on ``cuda:3`` with ``cuda:0``
+   current, bit-equal to ``cuda:0``'s.  World 1 in this process (phase 13's
+   run on the 24 frames, its 1e-7 probe, the sharded solvers on the run's
+   inputs) is the reference.  One launch of 4 ranks (``parallel.launch``,
+   ``parallel.n_devices`` 0: every card) runs the System on the 24 frames
+   twice per rank: the ranks and the two runs bit-equal; each rank's B1 on
+   every frame and re-anchor and B2 twice per keyframe; no host wait on a
+   frame without a keyframe; held to world 1 (states, keyframe and
+   template flags equal, matches and inliers within max(1, 2%), the pose
+   within max(2e-2, 3x the probe's gap) on every frame); the sharded
+   solvers within phase 13's world-2 limits of world 1 (the Schur problem
+   at 4 u-rows a rank).  The ranks then run the synth app as a world of 4,
+   and ``cli synth`` started alone with ``n_devices`` 0 spans the 4 cards
+   and must write the same files.  Times, not gated: the parallel frame
+   p50 / max, keyframe frames, all-reduces per frame, the SfT's host ms
+   and one all-reduce alone at its buffer's size, at world 4 and world 1,
+   each also with ``TORCH_NCCL_AVOID_RECORD_STREAMS=1`` (for those runs
+   only), on frames 0-11 after a warm-up;
+16. print a ``timing`` line, one ``{"kernels": [...]}`` line, then the last
    line ``{"ok": true, "device": {...}}``.
 
 Every phase before the pipelined slice runs the synchronous protocol
@@ -173,12 +200,15 @@ to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import datetime
 import json
 import math
 import multiprocessing
 import os
+import pickle
+import re
 import shutil
 import statistics
 import struct
@@ -191,7 +221,7 @@ from concurrent.futures import ProcessPoolExecutor
 import numpy as np
 import torch
 
-from defslam_tpu_torch import parallel, profiling
+from defslam_tpu_torch import cli, parallel, profiling
 from defslam_tpu_torch.config import (CapacityConfig, Config, MappingConfig, MeshConfig,
                                       OrbConfig, ParallelConfig, SfTConfig, TrackingConfig)
 from defslam_tpu_torch.io.synthetic import SyntheticSequence, _gaussian_blur, make_sequence
@@ -202,7 +232,7 @@ from defslam_tpu_torch.mapping import mapper
 from defslam_tpu_torch.mapping import normals as nrm
 from defslam_tpu_torch.mapstore import state as store
 from defslam_tpu_torch.ops import cuda_build, hamming, matching, windowed_match
-from defslam_tpu_torch.parallel import sharded
+from defslam_tpu_torch.parallel import launch, sharded
 from defslam_tpu_torch.rigid import loop_closing as rigid_loop
 from defslam_tpu_torch.rigid import triangulation as rigid_tri
 from defslam_tpu_torch.rigid.system import RigidSystem
@@ -274,7 +304,10 @@ def cuda_graph_ms(launch, launches: int = 20, reps: int = 5) -> float:
     launch()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # a capture stream of the current card: ``torch.cuda.graph``'s default
+    # one is made once, on the card current then, and a capture there
+    # holds no launch made on another card
+    with torch.cuda.graph(graph, stream=torch.cuda.Stream()):
         for _ in range(launches):
             launch()
     graph.replay()
@@ -1431,7 +1464,6 @@ def decode_alone(path: str, workdir: str, has_cv2: bool, reps: int = 5) -> dict:
 def apps_phase(seq, dev) -> dict:
     """Phase 11 (see the module's docstring), on ``seq``: the 24-frame
     bench render with its right view."""
-    from defslam_tpu_torch import cli
     from defslam_tpu_torch.io import datasets, png
     from defslam_tpu_torch.tools import make_synth_dataset
 
@@ -1898,7 +1930,6 @@ def rigid_cli(root: str, seq) -> dict:
     it is installed (else the frames through ``load_video``'s place)."""
     import importlib.util
 
-    from defslam_tpu_torch import cli
     from defslam_tpu_torch.io import datasets
 
     frames = [np.clip(f, 0, 255).astype(np.uint8) for f in seq.frames[:RIGID_VIDEO_FRAMES]]
@@ -2065,15 +2096,19 @@ class ShardProbe:
             setattr(sharded, n, f)
 
 
-def parallel_run(frames, cfg: Config, device, check_waits: bool = False):
-    """``System`` with ``parallel.enabled`` (world 1; the group brought up
-    first with the phase's collective timeout) on the frames, keyframes on.
-    Per frame: host ms (synchronized on the card), all-reduce calls and
-    bytes; per keyframe frame the CUDA-event ms from the chain's start to
-    the frame's end (chain and re-anchor) and of the chain alone.  With
+def parallel_run(frames, cfg: Config, device, check_waits: bool = False, perturb: float = 0.0,
+                 keep_group: bool = False):
+    """``System`` with ``parallel.enabled`` (world 1, or a rank of the
+    launch this process belongs to; the group brought up first with the
+    phase's collective timeout) on the frames, keyframes on.  Per frame:
+    host ms (synchronized on the card), all-reduce calls and bytes; per
+    keyframe frame the CUDA-event ms from the chain's start to the frame's
+    end (chain and re-anchor) and of the chain alone.  With
     ``check_waits`` every frame but the first two runs under
     ``profiling.host_waits``: "error" for a frame without a keyframe, else
-    "warn" with its waits counted.  Returns (system, per-frame rows)."""
+    "warn" with its waits counted.  ``perturb`` scales the template nodes
+    by (1 + N(0, perturb)) after frame 0 (the probe); ``keep_group``
+    leaves the process group up.  Returns (system, per-frame rows)."""
     device = torch.device(device)
     parallel.init_distributed(cfg, device, timeout=PAR_TIMEOUT_S)
     s = System(cfg, device=device)
@@ -2104,6 +2139,10 @@ def parallel_run(frames, cfg: Config, device, check_waits: bool = False):
             else:
                 w = {}
                 s.track_monocular(frame, timestamp=float(t))
+            if t == 0 and perturb:
+                noise = np.random.default_rng(1).normal(0.0, perturb, (cfg.mesh.n_nodes, 3))
+                s.template = s.template._replace(nodes=s.template.nodes * (1.0 + torch.as_tensor(
+                    noise, dtype=torch.float32, device=s.device)))
             end = None
             if cuda:
                 end = torch.cuda.Event(enable_timing=True)
@@ -2117,7 +2156,8 @@ def parallel_run(frames, cfg: Config, device, check_waits: bool = False):
                              kf_end=end if kf else None))
         s.flush()
     finally:
-        s.shutdown()
+        if not keep_group:
+            s.shutdown()
         if chain:
             chain.restore()
     if cuda:
@@ -2218,9 +2258,23 @@ def sharding_overhead(group, data: sft.SfTData, dev) -> dict:
             times.append((time.perf_counter() - t0) * 1e3)
         return statistics.median(times)
 
+    return {"sft_single_ms": host_ms(lambda: sft.solve(data, topo, cfg)),
+            "sft_sharded_ms": host_ms(lambda: sharded.sft_solve_sharded(group, data, cfg)),
+            **all_reduce_alone(group, dev)}
+
+
+BACKLOG_CYCLES = 10_000_000  # ~5 ms of a sleep kernel at the H100's ~1.98 GHz
+
+
+def all_reduce_alone(group, dev) -> dict:
+    """One all-reduce of the sharded LM's block buffer (92,143 float32) on
+    its own, 125 in a row on the card: host us and CUDA-event us per call;
+    and the host us of one call, and of an elementwise op, issued behind
+    ~5 ms of queued device work (not counted in the group's all-reduces)."""
     buf = torch.zeros(36 + 1800 + 90000 + 6 + 300 + 1, device=dev)
+    calls, nbytes = group.n_all_reduce, group.all_reduce_bytes
     group.all_reduce(buf)
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(dev)
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -2230,9 +2284,18 @@ def sharding_overhead(group, data: sft.SfTData, dev) -> dict:
     b.record()
     host_us = (time.perf_counter() - t0) / 125 * 1e6
     b.synchronize()
-    return {"sft_single_ms": host_ms(lambda: sft.solve(data, topo, cfg)),
-            "sft_sharded_ms": host_ms(lambda: sharded.sft_solve_sharded(group, data, cfg)),
-            "all_reduce_host_us": host_us, "all_reduce_device_us": a.elapsed_time(b) / 125 * 1e3}
+    # does the host wait for the stream? one call behind ~5 ms of queued
+    # device work (a sleep kernel), against an elementwise op behind the same
+    behind = {}
+    for name, op in (("all_reduce", lambda: group.all_reduce(buf)), ("add", lambda: buf.add_(0))):
+        torch.cuda._sleep(BACKLOG_CYCLES)
+        t1 = time.perf_counter()
+        op()
+        behind[f"{name}_host_us_behind_backlog"] = (time.perf_counter() - t1) * 1e6
+        torch.cuda.synchronize(dev)
+    group.n_all_reduce, group.all_reduce_bytes = calls, nbytes
+    return {"all_reduce_host_us": host_us, "all_reduce_device_us": a.elapsed_time(b) / 125 * 1e3,
+            **behind}
 
 
 def parallel_worker(rank: int, rdv: str, inputs_path: str, outdir: str, device: str) -> int:
@@ -2250,6 +2313,71 @@ def parallel_worker(rank: int, rdv: str, inputs_path: str, outdir: str, device: 
     finally:
         parallel.shutdown()
     return 0
+
+
+def shard_inputs(shards: ShardProbe) -> dict:
+    """The sharded solvers' inputs that a parallel run handed them, as numpy."""
+    inputs = {f"sft_{f}": getattr(shards.sft, f).cpu().numpy() for f in sft.SfTData._fields}
+    batch, dom, bend = shards.warps
+    inputs.update({f"warp_{f}": getattr(batch, f).cpu().numpy() for f in mapper.WarpBatch._fields})
+    inputs.update(warp_dom=dom.cpu().numpy(), warp_bend=bend.cpu().numpy())
+    obs, k0, _ = shards.normals
+    inputs.update({f"obs_{f}": getattr(obs, f).cpu().numpy() for f in nrm.PairObs._fields})
+    inputs["obs_k0"] = k0.cpu().numpy()
+    return inputs
+
+
+def world1_shards(pcfg: Config, inputs: dict, dev) -> tuple[dict, dict, dict]:
+    """The sharded solvers at world 1 over NCCL on ``dev``; the gap a 1e-7
+    perturbation of the frame solve's start opens (the frame solve's own
+    sensitivity: nodes0 scaled by (1 + N(0, 1e-7))); and
+    ``sharding_overhead``."""
+    parallel.init_distributed(pcfg, dev, timeout=PAR_TIMEOUT_S)
+    try:
+        group = sharded.make_group(1)
+        w1 = shard_problems(group, inputs, dev)
+        data = sft.SfTData(**{f: torch.as_tensor(inputs["sft_" + f], device=dev)
+                              for f in sft.SfTData._fields})
+        noise = torch.as_tensor(np.random.default_rng(1).normal(0.0, PAR_PROBE, data.nodes0.shape),
+                                dtype=torch.float32, device=dev)
+        probe_res = sharded.sft_solve_sharded(group, data._replace(
+            nodes0=data.nodes0 * (1.0 + noise)), Config())
+        overhead = sharding_overhead(group, data, dev) if torch.device(dev).type == "cuda" else {}
+    finally:
+        parallel.shutdown()
+    sft_probe = {"T": float(np.abs(probe_res.T.cpu().numpy() - w1["sft_T"]).max()),
+                 "nodes": float(np.abs(probe_res.nodes.cpu().numpy() - w1["sft_nodes"]).max())}
+    return w1, sft_probe, overhead
+
+
+def held_to_world1(r: dict, w1: dict, sft_probe: dict, cfg: Config, what: str):
+    """The sharded solvers of a larger world (``r``) against world 1's:
+    the JAX package's tolerances (tests/test_parallel.py); the frame's SfT,
+    a real problem where a reduction order moves the solution along its
+    flat directions, within 3x its own 1e-7 probe where that is larger.
+    Returns (gaps, limits); raises beyond them."""
+    nres = nrm.NormalResult(*(torch.as_tensor(w1[f"normals_{k}"]) for k in nrm.NormalResult._fields))
+    gate = mapper.normal_reliability_gate(nres, cfg.regularizer.reliability).numpy()
+    gaps = {
+        "sft_T": float(np.abs(r["sft_T"] - w1["sft_T"]).max()),
+        "sft_nodes": float(np.abs(r["sft_nodes"] - w1["sft_nodes"]).max()),
+        "sft_inlier_equal": float((r["sft_inlier"] == w1["sft_inlier"]).mean()),
+        "schur_T": float(np.abs(r["schur_T"] - w1["schur_T"]).max()),
+        "schur_nodes": float(np.abs(r["schur_nodes"] - w1["schur_nodes"]).max()),
+        "warps_warped": float(np.abs(r["warps_warped"] - w1["warps_warped"]).max()),
+        "normals_k_gated": float(np.abs(r["normals_k"] - w1["normals_k"])[gate].max()),
+        "normals_gate_equal": bool((mapper.normal_reliability_gate(nrm.NormalResult(*(
+            torch.as_tensor(r[f"normals_{k}"]) for k in nrm.NormalResult._fields)),
+            cfg.regularizer.reliability).numpy() == gate).all()),
+    }
+    print(what, "vs world 1", json.dumps(gaps), "the frame SfT's 1e-7 probe",
+          json.dumps(sft_probe), flush=True)
+    limits = {"sft_T": max(1e-4, 3 * sft_probe["T"]), "sft_nodes": max(1e-4, 3 * sft_probe["nodes"]),
+              "schur_T": 1e-4, "schur_nodes": 2e-4, "warps_warped": 1e-4, "normals_k_gated": 3e-3}
+    if (any(gaps[k] > v for k, v in limits.items()) or gaps["sft_inlier_equal"] < 0.99
+            or not gaps["normals_gate_equal"]):
+        raise SystemExit(f"{what} disagrees with world 1 beyond {limits}")
+    return gaps, limits
 
 
 def parallel_phase(seq, cfg: Config, dev, single=None) -> dict:
@@ -2328,28 +2456,8 @@ def parallel_phase(seq, cfg: Config, dev, single=None) -> dict:
         raise SystemExit("parallel: the card's run disagrees with the CPU's")
 
     # ---- the sharded solvers at world 1 (NCCL) and world 2 (two ranks over gloo)
-    inputs = {f"sft_{f}": getattr(shards.sft, f).cpu().numpy() for f in sft.SfTData._fields}
-    batch, dom, bend = shards.warps
-    inputs.update({f"warp_{f}": getattr(batch, f).cpu().numpy() for f in mapper.WarpBatch._fields})
-    inputs.update(warp_dom=dom.cpu().numpy(), warp_bend=bend.cpu().numpy())
-    obs, k0, _ = shards.normals
-    inputs.update({f"obs_{f}": getattr(obs, f).cpu().numpy() for f in nrm.PairObs._fields})
-    inputs["obs_k0"] = k0.cpu().numpy()
-    parallel.init_distributed(pcfg, dev, timeout=PAR_TIMEOUT_S)
-    try:
-        group = sharded.make_group(1)
-        w1 = shard_problems(group, inputs, dev)
-        # the frame solve's own sensitivity: the same solve from nodes0
-        # scaled by (1 + N(0, 1e-7))
-        data = sft.SfTData(**{f: torch.as_tensor(inputs["sft_" + f], device=dev)
-                              for f in sft.SfTData._fields})
-        noise = torch.as_tensor(np.random.default_rng(1).normal(0.0, PAR_PROBE, data.nodes0.shape),
-                                dtype=torch.float32, device=dev)
-        probe_res = sharded.sft_solve_sharded(group, data._replace(
-            nodes0=data.nodes0 * (1.0 + noise)), Config())
-        overhead = sharding_overhead(group, data, dev)
-    finally:
-        parallel.shutdown()
+    inputs = shard_inputs(shards)
+    w1, sft_probe, overhead = world1_shards(pcfg, inputs, dev)
     work = os.path.join("chiprun_out", "parallel_world2")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
@@ -2375,33 +2483,10 @@ def parallel_phase(seq, cfg: Config, dev, single=None) -> dict:
     unequal = [k for k in w2[0] if k not in timing_keys and not np.array_equal(w2[0][k], w2[1][k])]
     if unequal:
         raise SystemExit(f"parallel: the two ranks differ in {unequal}")
-    nres = nrm.NormalResult(*(torch.as_tensor(w1[f"normals_{k}"]) for k in nrm.NormalResult._fields))
-    gate = mapper.normal_reliability_gate(nres, cfg.regularizer.reliability).numpy()
     r = w2[0]
-    sft_probe = {"T": float(np.abs(probe_res.T.cpu().numpy() - w1["sft_T"]).max()),
-                 "nodes": float(np.abs(probe_res.nodes.cpu().numpy() - w1["sft_nodes"]).max())}
-    shard_gaps = {
-        "sft_T": float(np.abs(r["sft_T"] - w1["sft_T"]).max()),
-        "sft_nodes": float(np.abs(r["sft_nodes"] - w1["sft_nodes"]).max()),
-        "sft_inlier_equal": float((r["sft_inlier"] == w1["sft_inlier"]).mean()),
-        "schur_T": float(np.abs(r["schur_T"] - w1["schur_T"]).max()),
-        "schur_nodes": float(np.abs(r["schur_nodes"] - w1["schur_nodes"]).max()),
-        "warps_warped": float(np.abs(r["warps_warped"] - w1["warps_warped"]).max()),
-        "normals_k_gated": float(np.abs(r["normals_k"] - w1["normals_k"])[gate].max()),
-        "normals_gate_equal": bool((mapper.normal_reliability_gate(nrm.NormalResult(*(
-            torch.as_tensor(r[f"normals_{k}"]) for k in nrm.NormalResult._fields)),
-            cfg.regularizer.reliability).numpy() == gate).all()),
-    }
-    print("parallel world 2 vs world 1", json.dumps(shard_gaps), "the frame SfT's 1e-7 probe",
-          json.dumps(sft_probe), flush=True)
-    # the JAX package's tolerances (tests/test_parallel.py); the frame's
-    # SfT, a real problem where a reduction order moves the solution along
-    # its flat directions, within 3x its own 1e-7 probe where that is larger
-    limits = {"sft_T": max(1e-4, 3 * sft_probe["T"]), "sft_nodes": max(1e-4, 3 * sft_probe["nodes"]),
-              "schur_T": 1e-4, "schur_nodes": 2e-4, "warps_warped": 1e-4, "normals_k_gated": 3e-3}
-    if (any(shard_gaps[k] > v for k, v in limits.items()) or shard_gaps["sft_inlier_equal"] < 0.99
-            or not shard_gaps["normals_gate_equal"]):
-        raise SystemExit(f"parallel: world 2 disagrees with world 1 beyond {limits}")
+    shard_gaps, limits = held_to_world1(r, w1, sft_probe, cfg, "parallel: world 2")
+
+    out["cli_world1"] = cli_world1(os.path.join("chiprun_out", "parallel_cli"))
 
     plain = [r for r in rows[1:] if not r["keyframe"]]
     single_plain = [single_s[m["frame"]] * 1e3 for m in single._metrics[1:] if not m["keyframe"]]
@@ -2433,6 +2518,393 @@ def parallel_phase(seq, cfg: Config, dev, single=None) -> dict:
     print("parallel", json.dumps({k: v for k, v in out.items()
                                   if k not in ("vs_single", "cpu_frames")}), flush=True)
     return out
+
+
+CLI_FRAMES = 12  # the synth app's parallel runs (320x240, the default Config: a keyframe at 10)
+APP_FILES = ("Matches.txt", "StatusTracking.txt", "MapPointUsage.txt", "Trajectory.txt",
+             "trajectory.txt", "template.obj")
+
+
+def cli_yaml(work: str, n_devices: int) -> str:
+    """Settings for the synth app: the default Config with
+    ``parallel.enabled`` and ``n_devices``."""
+    path = os.path.join(work, f"parallel_n{n_devices}.yaml")
+    with open(path, "w") as f:
+        f.write(f"parallel:\n  enabled: true\n  n_devices: {n_devices}\n")
+    return path
+
+
+def synth_argv(yaml: str, out: str, frames: int = CLI_FRAMES) -> list[str]:
+    return ["synth", "--frames", str(frames), "--config", yaml, "--out", out]
+
+
+def differing_files(dir_a: str, dir_b: str) -> list[str]:
+    """The app result files that are not equal byte for byte (or missing)."""
+    def read(d, n):
+        p = os.path.join(d, n)
+        return open(p, "rb").read() if os.path.exists(p) else None
+    return [n for n in APP_FILES if read(dir_a, n) is None or read(dir_a, n) != read(dir_b, n)]
+
+
+def cli_world1(work: str) -> dict:
+    """Phase 13's launcher step: ``cli synth`` with ``parallel.enabled``
+    (``n_devices`` 1) through ``parallel.launch`` at world 1 over NCCL; its
+    rank-0 files must equal those of the same app run in this process."""
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    yaml = cli_yaml(work, 1)
+    here, there = os.path.join(work, "in_process"), os.path.join(work, "launched")
+    t0 = time.perf_counter()
+    if cli.main(synth_argv(yaml, here)) != 0:
+        raise SystemExit("parallel: the in-process synth app failed")
+    t1 = time.perf_counter()
+    rc = launch.launch([sys.executable, "-m", "defslam_tpu_torch.cli", *synth_argv(yaml, there)],
+                       1, "cuda", timeout=2 * PAR_TIMEOUT_S)
+    t2 = time.perf_counter()
+    print(flush=True)
+    if rc != 0:
+        raise SystemExit(f"parallel: the launched synth app exited {rc}")
+    differ = differing_files(here, there)
+    out = {"in_process_s": t1 - t0, "launched_s": t2 - t1, "differing_files": differ}
+    print("parallel cli world 1", json.dumps(out), flush=True)
+    if differ:
+        raise SystemExit(f"parallel: the launched app's {differ} differ from the in-process run's")
+    return out
+
+
+MULTI_WORLD = 4  # phase 15: one rank per card
+MULTI_TIMING_FRAMES = 12  # the timing launches' runs: frames 0-11, a keyframe at 10
+AVOID_RECORD_STREAMS = {"TORCH_NCCL_AVOID_RECORD_STREAMS": "1"}
+
+
+def timing_summary(rows: list[dict], group, inputs: dict, dev) -> dict:
+    """A parallel run's times (host ms; not gated): frame p50 and max over
+    the frames after the first, keyframe frames, all-reduces per frame
+    without a keyframe; on the card one all-reduce alone and the frame
+    SfT's host ms with and without its all-reduces, on ``group``."""
+    plain = [r for r in rows[1:] if not r["keyframe"]]
+    out = {"frame_p50_ms": statistics.median(r["ms"] for r in plain),
+           "frame_max_ms": max(r["ms"] for r in rows[1:]),
+           "keyframe_frame_ms": [r["ms"] for r in rows if r["keyframe"]],
+           "keyframe_ms": [r.get("keyframe_ms") for r in rows if r["keyframe"]],
+           "all_reduce_calls_per_frame": statistics.median(r["all_reduce_calls"] for r in plain),
+           "all_reduce_bytes_per_frame": statistics.median(r["all_reduce_bytes"] for r in plain)}
+    if torch.device(dev).type == "cuda":
+        out.update(all_reduce_alone(group, dev))
+        out.update(sft_all_reduce_cost(group, inputs, dev))
+    return out
+
+
+def multicard_rank(work: str, mode: str) -> int:
+    """A rank of phase 15's launches (``chip_smoke.py --multicard-rank work
+    mode``), on its card: ``full``: the parallel System on the phase's
+    frames twice (the kernels' launches counted over the first, host waits
+    checked in the second); ``timing``: the first ``MULTI_TIMING_FRAMES``
+    frames once.  Then, timed, those first frames again, the sharded
+    solvers on world 1's inputs, one all-reduce alone and the frame
+    solve's all-reduce cost; in ``full`` mode last ``cli.main`` of the
+    synth app as this rank.  Writes ``rank<r>.npz`` and ``rank<r>.json``
+    to ``work``."""
+    with open(os.path.join(work, "job.pkl"), "rb") as f:
+        job = pickle.load(f)
+    pcfg, dev = job["cfg"], torch.device(job["device"])
+    parallel.init_distributed(pcfg, dev, timeout=PAR_TIMEOUT_S)
+    rank = torch.distributed.get_rank()
+    frames = job["frames"] if mode == "full" else job["frames"][:MULTI_TIMING_FRAMES]
+    cuda_build.LAUNCHES.clear()  # the first run pays the process's set-up; a later one is timed
+    s, rows = parallel_run(frames, pcfg, dev, keep_group=True)
+    out = {"rank": rank, "world": s.group.size, "device": str(s.device),
+           "launches": dict(cuda_build.LAUNCHES), "metrics": s._metrics}
+    arrays = {"traj": np.stack([np.asarray(T) for _, T in s.trajectory]),
+              "ts": np.array([t for t, _ in s.trajectory])}
+    if mode == "full":
+        s2, rows2 = parallel_run(frames, pcfg, dev, check_waits=s.device.type == "cuda",
+                                 keep_group=True)
+        out["repeats"] = same_run(s, s2)
+        out["waits"] = [dict(frame=r["frame"], mode=r["wait_mode"], waits=r["waits"],
+                             where=r["where"]) for r in rows2 if r["wait_mode"]]
+    _, timed = parallel_run(frames[:MULTI_TIMING_FRAMES], pcfg, dev, keep_group=True)
+    group = sharded.make_group(0)
+    shards = shard_problems(group, job["inputs"], s.device)
+    out["timing"] = timing_summary(timed, group, job["inputs"], s.device)
+    arrays.update({k: v for k, v in shards.items() if k != "sft_ms"})
+    np.savez(os.path.join(work, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f, default=str)
+    if mode == "full":  # the synth app as a rank of this world; it ends the group
+        return cli.main(synth_argv(job["yaml"], os.path.join(work, "cli_ranks"),
+                                   job["cli_frames"]) + ["--device", job["device"]])
+    parallel.shutdown()
+    return 0
+
+
+def nccl_transport(logdir: str) -> dict:
+    """What NCCL's init logs (``NCCL_DEBUG=INFO``) say it connects the
+    ranks through: the count of each ``via <transport>`` of its channels,
+    and its lines on NVLink SHARP (NVLS) and the NVLink topology."""
+    via, lines = collections.Counter(), []
+    for name in sorted(os.listdir(logdir)):
+        with open(os.path.join(logdir, name), errors="replace") as f:
+            for line in f:
+                via.update(re.findall(r" via (\S+)", line))
+                if re.search(r"NVLS|NVLink|nvlink|NVL ", line) and len(lines) < 12:
+                    lines.append(line.strip()[-200:])
+    return {"via": dict(via), "lines": lines}
+
+
+def sft_all_reduce_cost(group, inputs: dict, dev) -> dict:
+    """The frame solve's host ms (median of 3, warm) on ``group`` as it
+    runs, and with ``dist.all_reduce`` a no-op (the same LM iterations on
+    the card, which takes no early exit): what its all-reduces cost inside
+    the LM."""
+    data = sft.SfTData(**{f: torch.as_tensor(inputs["sft_" + f], device=dev)
+                          for f in sft.SfTData._fields})
+
+    def host_ms():
+        sharded.sft_solve_sharded(group, data, Config())
+        torch.cuda.synchronize(dev)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            sharded.sft_solve_sharded(group, data, Config())
+            torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    calls = group.n_all_reduce
+    out = {"sft_host_ms": host_ms()}
+    per_solve = (group.n_all_reduce - calls) // 4
+    real = torch.distributed.all_reduce
+    torch.distributed.all_reduce = lambda t, *a, **k: None
+    try:
+        out["sft_no_all_reduce_host_ms"] = host_ms()
+    finally:
+        torch.distributed.all_reduce = real
+    out["all_reduces_per_solve"] = per_solve
+    out["in_lm_us_per_all_reduce"] = (out["sft_host_ms"] - out["sft_no_all_reduce_host_ms"]
+                                      ) / max(per_solve, 1) * 1e3
+    return out
+
+
+def launch_ranks(work: str, job: dict, mode: str, env: dict | None = None) -> list[dict]:
+    """``multicard_rank`` on a launch of ``MULTI_WORLD`` ranks (the job's
+    device: a card each, or the CPU over gloo); each rank's json, with its
+    npz under ``arrays``."""
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    with open(os.path.join(work, "job.pkl"), "wb") as f:
+        pickle.dump(job, f)
+    rc = launch.launch([sys.executable, os.path.abspath(__file__), "--multicard-rank", work, mode],
+                       MULTI_WORLD, job["device"], timeout=4 * PAR_TIMEOUT_S, env=env)
+    os.remove(os.path.join(work, "job.pkl"))  # the frames (29 MB): keep the outputs small
+    print(flush=True)
+    if rc != 0:
+        raise SystemExit(f"multicard: the {mode} launch exited {rc}")
+    ranks = []
+    for r in range(MULTI_WORLD):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+        ranks[-1]["arrays"] = dict(np.load(os.path.join(work, f"rank{r}.npz")))
+    return ranks
+
+
+def ranks_bit_equal(ranks: list[dict], what: str) -> None:
+    """Every rank's rows, trajectory and solver results equal rank 0's."""
+    for r in ranks[1:]:
+        a, b = r["arrays"], ranks[0]["arrays"]
+        unequal = [k for k in b if not np.array_equal(a[k], b[k])]
+        if r["metrics"] != ranks[0]["metrics"] or unequal:
+            raise SystemExit(f"{what}: rank {r['rank']} differs from rank 0 "
+                             f"(metrics equal: {r['metrics'] == ranks[0]['metrics']}, {unequal})")
+
+
+def world_held(ranks_run: dict, ref: System, probe: System) -> list[dict]:
+    """A world-4 run (rank 0's metrics and trajectory) against world 1 on
+    the legacy chain: states, keyframe and template flags equal, inliers
+    within max(1, 2%) (``compare_runs``), matches too, and the pose within
+    max(2e-2, 3x the gap of the world-1 run's 1e-7 probe) on every frame."""
+    rows = []
+    for t, (mp, ms) in enumerate(zip(ranks_run["metrics"], ref._metrics)):
+        gap = float(np.abs(ranks_run["arrays"]["traj"][t] - np.asarray(ref.trajectory[t][1])).max())
+        pgap = pose_gap(probe, ref, t)
+        ok = (all(mp[k] == ms[k] for k in ("state", "keyframe", "template"))
+              and all(abs(mp[k] - ms[k]) <= max(1, 0.02 * ms[k]) for k in ("matches", "inliers"))
+              and gap <= max(2e-2, 3 * pgap))
+        rows.append(dict(frame=t, matches=[mp["matches"], ms["matches"]],
+                         inliers=[mp["inliers"], ms["inliers"]], template=[mp["template"],
+                         ms["template"]], pose_gap=gap, probe_gap=pgap, ok=ok))
+    if len(rows) != len(ref._metrics):
+        raise SystemExit(f"multicard: {len(rows)} frames against world 1's {len(ref._metrics)}")
+    return rows
+
+
+def launches_and_waits_held(ranks: list[dict], n_frames: int, swaps: int, n_kf: int,
+                             what: str) -> None:
+    """B1 on every frame and re-anchor and B2 twice per keyframe, on every
+    rank (phase 13's counts), and no host wait on a frame without a
+    keyframe."""
+    for r in ranks:
+        la = r["launches"]
+        if la.get("windowed_match", 0) != 2 * n_kf or la.get("hamming_matrix", 0) < (
+                n_frames - 1 + swaps):
+            raise SystemExit(f"{what}: rank {r['rank']} launched {la} for {n_frames} frames, "
+                             f"{n_kf} keyframes and {swaps} re-anchors")
+        if any(w["waits"] for w in r.get("waits", []) if w["mode"] == "error"):
+            raise SystemExit(f"{what}: rank {r['rank']} waited on a frame without a keyframe")
+
+
+def multicard_phase(seq, cfg: Config, dev, rates: dict | None = None) -> dict:
+    """Phase 15 (``--multicard``): the multi-device System at world 4 over
+    NCCL, one rank per card, started by one launch; see the module
+    docstring.  ``dev`` is card 0 (or the CPU for a rehearsal over gloo,
+    without the kernel and card checks)."""
+    dev = torch.device(dev)
+    cuda = dev.type == "cuda"
+    if cuda and torch.cuda.device_count() < MULTI_WORLD:
+        raise SystemExit(f"multicard: needs {MULTI_WORLD} CUDA cards, "
+                         f"{torch.cuda.device_count()} visible")
+    root = os.path.abspath(os.path.join("chiprun_out", "multicard"))
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out = {}
+    frames = seq.frames
+    period = cfg.tracking.keyframe_period
+    n_kf = (len(frames) - 1) // period
+    if cuda:
+        # ---- 6 (printed first). the cards and what joins them
+        out["cards"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=index,name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip().splitlines()
+        for key, cmd in (("topology", ["nvidia-smi", "topo", "-m"]),
+                         ("nvlink", ["nvidia-smi", "nvlink", "-s"])):
+            r = subprocess.run(cmd, capture_output=True, text=True)
+            out[key] = (r.stdout + r.stderr).strip()
+        out["peer_access"] = [[k == j or torch.cuda.can_device_access_peer(k, j)
+                               for j in range(MULTI_WORLD)] for k in range(MULTI_WORLD)]
+        print("multicard cards", json.dumps(out["cards"]), "\n" + out["topology"] + "\n"
+              + out["nvlink"][:1500] + "\npeer access", out["peer_access"], flush=True)
+        # ---- 1. B1 and B2 against their plain versions on cards 1-3 (card 0: phase 3)
+        cards = [torch.device("cuda", k) for k in range(MULTI_WORLD)]
+        out["kernels_by_card"] = {}
+        for card in cards[1:]:
+            with torch.cuda.device(card):
+                kh, kw = check_hamming(card, rates), check_windowed_match(cfg, card, rates)
+            out["kernels_by_card"][str(card)] = {
+                k["name"]: {"max_abs_err": k["max_abs_err"], "device_ms": k.get("device_ms")}
+                for k in (kh, kw)}
+        print("multicard kernels by card", json.dumps(out["kernels_by_card"]), flush=True)
+        # ---- 2. the tracking slice on the last card, card 0 current
+        a, _ = run_slice(frames[:N_FRAMES], cfg, cards[0])
+        before = cuda_build.LAUNCHES.get("hamming_matrix", 0)
+        b, _ = run_slice(frames[:N_FRAMES], cfg, cards[-1])
+        torch.cuda.synchronize(cards[-1])
+        out["last_card"] = {"device": str(b.device), "current": torch.cuda.current_device(),
+                            "b1_launches": cuda_build.LAUNCHES.get("hamming_matrix", 0) - before,
+                            "bit_equal": same_run(a, b)}
+        print("multicard tracking slice on the last card", json.dumps(out["last_card"]),
+              flush=True)
+        if not out["last_card"]["bit_equal"] or b.pose.device != cards[-1]:
+            raise SystemExit(f"multicard: the tracking slice on {cards[-1]} differs from cuda:0's")
+        if out["last_card"]["b1_launches"] < N_FRAMES - 1:
+            raise SystemExit("multicard: B1 did not launch on every frame on the last card")
+
+    # ---- world 1 in this process: the reference, its probe, the solvers' inputs
+    pcfg1 = dataclasses.replace(cfg, parallel=ParallelConfig(enabled=True, n_devices=1))
+    shards = ShardProbe()
+    try:
+        ref, _ = parallel_run(frames, pcfg1, dev)
+    finally:
+        shards.restore()
+    probe, _ = parallel_run(frames, pcfg1, dev, perturb=PAR_PROBE)
+    inputs = shard_inputs(shards)
+    w1, sft_probe, _ = world1_shards(pcfg1, inputs, dev)
+
+    # ---- 3 and 4. world 4, one launch: the System twice, the solvers, the app
+    workdir = os.path.join(root, "world4")
+    pcfg = dataclasses.replace(cfg, parallel=ParallelConfig(enabled=True, n_devices=0))
+    job = {"cfg": pcfg, "device": dev.type, "frames": np.asarray(frames), "inputs": inputs,
+           # n_devices 0: every card (on the CPU a world of 1, so 4 there)
+           "yaml": cli_yaml(root, 0 if cuda else MULTI_WORLD), "cli_frames": CLI_FRAMES}
+    t0 = time.perf_counter()
+    nccl_log = os.path.join(root, "nccl_debug")
+    os.makedirs(nccl_log)
+    ranks = launch_ranks(workdir, job, "full", env={
+        "NCCL_DEBUG": "INFO", "NCCL_DEBUG_SUBSYS": "INIT,GRAPH",
+        "NCCL_DEBUG_FILE": os.path.join(nccl_log, "rank.%p.log")})
+    out["world4_launch_s"] = time.perf_counter() - t0
+    out["nccl_transport"] = nccl_transport(nccl_log)
+    print("multicard NCCL transport", json.dumps(out["nccl_transport"]), flush=True)
+    devices = [r["device"] for r in ranks]
+    print("multicard world 4 devices", devices, "launches", [r["launches"] for r in ranks],
+          flush=True)
+    if any(r["world"] != MULTI_WORLD for r in ranks) or (
+            cuda and devices != [f"cuda:{k}" for k in range(MULTI_WORLD)]):
+        raise SystemExit(f"multicard: the ranks ran on {devices}")
+    ranks_bit_equal(ranks, "multicard world 4")
+    if not all(r["repeats"] for r in ranks):
+        raise SystemExit("multicard: a rank's two runs differ")
+    swaps = sum(m["template"] for m in ref._metrics[1:] if m["keyframe"])
+    if cuda:
+        launches_and_waits_held(ranks, len(frames), swaps, n_kf, "multicard world 4")
+    held = world_held(ranks[0], ref, probe)
+    print("multicard world 4 vs world 1", json.dumps(held), flush=True)
+    if not all(h["ok"] for h in held):
+        raise SystemExit("multicard: world 4 disagrees with world 1")
+    shard_gaps, limits = held_to_world1(ranks[0]["arrays"], w1, sft_probe, cfg,
+                                        "multicard: world 4's solvers")
+    out.update({"ranks_devices": devices, "launches_by_rank": [r["launches"] for r in ranks],
+                "host_waits_rank0": ranks[0].get("waits"), "vs_world1": held,
+                "solvers_vs_world1": shard_gaps, "solver_limits": limits})
+
+    # ---- the synth app at world 4 (n_devices 0: every card) against the
+    # same app run by the ranks above
+    app_out = os.path.join(root, "cli_launched")
+    t0 = time.perf_counter()
+    app = subprocess.Popen([sys.executable, "-m", "defslam_tpu_torch.cli",
+                            *synth_argv(job["yaml"], app_out, job["cli_frames"]),
+                            "--device", dev.type], cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        rc = app.wait(timeout=4 * PAR_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        app.terminate()  # the app's launcher stops its ranks
+        rc = app.wait()
+    out["cli_s"] = time.perf_counter() - t0
+    print(flush=True)
+    differ = differing_files(os.path.join(workdir, "cli_ranks"), app_out)
+    out["cli_differing_files"] = differ
+    print("multicard cli world 4: exit", rc, "files differing from the ranks' run", differ,
+          flush=True)
+    if rc != 0 or differ:
+        raise SystemExit(f"multicard: the synth app at world 4 exited {rc}, files {differ}")
+
+    # ---- 5. times at world 4 and world 1, without and with
+    # TORCH_NCCL_AVOID_RECORD_STREAMS=1 (set for these runs only)
+    timing = {"world4": ranks[0]["timing"]}
+    group_args = (pcfg1, inputs, dev)
+    timing["world1"] = world1_timing(frames[:MULTI_TIMING_FRAMES], *group_args)
+    os.environ.update(AVOID_RECORD_STREAMS)
+    try:
+        timing["world1_avoid_record_streams"] = world1_timing(frames[:MULTI_TIMING_FRAMES],
+                                                              *group_args)
+    finally:
+        for k in AVOID_RECORD_STREAMS:
+            os.environ.pop(k)
+    timed = launch_ranks(os.path.join(root, "world4_avoid_record_streams"), job, "timing",
+                         env=AVOID_RECORD_STREAMS)
+    timing["world4_avoid_record_streams"] = timed[0]["timing"]
+    out["timing"] = timing
+    out["launches"] = ranks[0]["launches"]
+    print("multicard timing", json.dumps(timing), flush=True)
+    return out
+
+
+def world1_timing(frames, pcfg1: Config, inputs: dict, dev) -> dict:
+    """``timing_summary`` of a world-1 run in this process."""
+    _, rows = parallel_run(frames, pcfg1, dev, keep_group=True)
+    try:
+        return timing_summary(rows, sharded.make_group(1), inputs, dev)
+    finally:
+        parallel.shutdown()
 
 
 LONGHAUL_RENDER = dict(n_frames=240, height=480, width=640, max_amp=0.07, camera_motion=0.9,
@@ -2646,9 +3118,12 @@ B1_SHAPES = {"relocalization_shape": (RELOC_SHAPE, 24, "relocalization"),
 # the phases that run alone after the kernel checks: flag -> (the phase,
 # called with the bench render, its Config, the device and the long-haul
 # render; B1's extra shapes; whether B2 is checked)
-ALONE = {"rigid": (lambda seq, cfg, dev, lh: rigid_phase(dev), ("rigid_shape",), False),
-         "parallel": (lambda seq, cfg, dev, lh: parallel_phase(seq, cfg, dev), (), True),
-         "longhaul": (lambda seq, cfg, dev, lh: longhaul_phase(lh, dev), ("longhaul_shape",), True)}
+ALONE = {"rigid": (lambda seq, cfg, dev, lh, rates: rigid_phase(dev), ("rigid_shape",), False),
+         "parallel": (lambda seq, cfg, dev, lh, rates: parallel_phase(seq, cfg, dev), (), True),
+         "longhaul": (lambda seq, cfg, dev, lh, rates: longhaul_phase(lh, dev), ("longhaul_shape",),
+                      True),
+         "multicard": (lambda seq, cfg, dev, lh, rates: multicard_phase(seq, cfg, dev, rates), (),
+                       True)}
 
 
 def run(mode: str, render) -> int:
@@ -2710,7 +3185,7 @@ def run(mode: str, render) -> int:
         return 0
     if mode in ALONE:
         torch.set_num_threads(max(1, os.cpu_count() or 1))
-        out = ALONE[mode][0](seq, cfg, dev, longhaul_seq)
+        out = ALONE[mode][0](seq, cfg, dev, longhaul_seq, rates)
         phase_done(mode)
         for k in kernels:
             k["launches_by_path"] = {mode: out["launches"].get(k["name"], 0)}
@@ -2865,5 +3340,7 @@ def run(mode: str, render) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-worker"]:
         sys.exit(parallel_worker(int(sys.argv[2]), *sys.argv[3:7]))
+    if sys.argv[1:2] == ["--multicard-rank"]:
+        sys.exit(multicard_rank(*sys.argv[2:4]))
     flags = [a[2:] for a in sys.argv[1:] if a[2:] in ("kernels", *ALONE)]
     sys.exit(main(flags[0] if flags else "full"))

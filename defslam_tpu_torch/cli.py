@@ -98,9 +98,12 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
 
-    from defslam_tpu_torch import profiling
+    import torch
+
+    from defslam_tpu_torch import parallel, profiling
     from defslam_tpu_torch.config import Config
     from defslam_tpu_torch.io import datasets
+    from defslam_tpu_torch.parallel import launch
     from defslam_tpu_torch.system import System
     from defslam_tpu_torch.viewer import export
 
@@ -108,15 +111,31 @@ def main(argv=None) -> int:
     if args.mode == "mono" and args.orbslam:
         return _orbslam(args, t_start)
     if args.mode == "synth":
+        cfg = Config.from_yaml(args.config) if args.config else Config()
+    else:
+        cfg = Config.from_yaml(args.yaml)
+    here = parallel.place(cfg)
+    world = _world(cfg, args, here)
+    if world > 1 and not here.rendezvous:
+        # this process starts the ranks; each runs this command again
+        if torch.device(args.device).index is not None:
+            raise SystemExit(f"--device {args.device} names one card for a world of {world} "
+                             "ranks: pass --device cuda (rank r takes cuda:r)")
+        argv = sys.argv[1:] if argv is None else list(argv)
+        return launch.launch([sys.executable, "-m", "defslam_tpu_torch.cli", *argv], world,
+                             args.device)
+    lead = not cfg.parallel.enabled or here.rank == 0  # the one rank that writes and prints
+    if not lead:
+        cfg = dataclasses.replace(cfg, output_dir="", viewer=dataclasses.replace(
+            cfg.viewer, save_frames=False))
+    if args.mode == "synth":
         from defslam_tpu_torch.io.synthetic import make_sequence
 
         seq = make_sequence(n_frames=args.frames, height=240, width=320)
-        base = Config.from_yaml(args.config) if args.config else Config()
-        cfg = dataclasses.replace(base, camera=seq.camera, output_dir=args.out, save_results=True)
-    else:
-        cfg = Config.from_yaml(args.yaml)
+        cfg = dataclasses.replace(cfg, camera=seq.camera, output_dir=args.out if lead else "",
+                                  save_results=True)
     sys_ = System(cfg, device=args.device)
-    loop = _Loop(sys_, args)
+    loop = _Loop(sys_, args, lead)
 
     if args.mode == "synth":
         for t in range(args.frames):
@@ -137,14 +156,38 @@ def main(argv=None) -> int:
             sys_.track_monocular_ct(img, depth, ts)
             loop.after_frame()
 
-    sys_.write_metrics()  # drains the pipeline first
-    profiling.print_report()  # nothing unless DEFSLAM_PROFILE=1
-    export.snapshot(sys_, sys_.cfg.output_dir)
-    n = len(sys_._metrics)
-    dt = time.perf_counter() - t_start
-    print(f"\nprocessed {n} frames in {dt:.1f}s ({n / dt:.2f} fps); "
-          f"results in {os.path.abspath(sys_.cfg.output_dir)}")
+    if lead:
+        sys_.write_metrics()  # drains the pipeline first
+        profiling.print_report()  # nothing unless DEFSLAM_PROFILE=1
+        export.snapshot(sys_, sys_.cfg.output_dir)
+        n = len(sys_._metrics)
+        dt = time.perf_counter() - t_start
+        print(f"\nprocessed {n} frames in {dt:.1f}s ({n / dt:.2f} fps); "
+              f"results in {os.path.abspath(sys_.cfg.output_dir)}")
+    sys_.shutdown()  # drains the pipeline; destroys the process group in parallel mode
     return 0
+
+
+def _world(cfg, args, here) -> int:
+    """The world of ranks this run takes: with ``parallel.enabled``, the
+    world this process is a rank of (``here``), or else the one
+    ``parallel.n_devices`` asks for (0: every visible card, 1 on the CPU);
+    else 1.  A world of more than one rank reads its input on every rank,
+    so it takes no camera, and no ``--step`` or ``--tune`` (one rank would
+    act on what the others do not see)."""
+    from defslam_tpu_torch.parallel import launch
+
+    pc = cfg.parallel
+    if not pc.enabled:
+        return 1
+    world = here.world if here.rendezvous else launch.target_world(pc.n_devices, args.device)
+    if world > 1:
+        if args.mode == "mono" and args.source.isdigit():
+            raise SystemExit("a camera feeds one process: parallel mode at a world of "
+                             f"{world} reads the input on every rank")
+        if args.step or args.tune:
+            raise SystemExit(f"--step and --tune act on one rank: not at a world of {world}")
+    return world
 
 
 def _orbslam(args, t_start: float) -> int:
@@ -196,28 +239,32 @@ class _Loop:
     """What every app does after a frame: the progress line, the live
     tuning file (``--tune``) and the step gate (``--step``)."""
 
-    def __init__(self, sys_, args):
+    def __init__(self, sys_, args, lead: bool = True):
         self.sys_ = sys_
         self.step = args.step
         self.tuner = _TuneWatcher(args.tune) if args.tune else None
+        self.lead = lead
 
     def after_frame(self) -> None:
-        _progress(self.sys_, interactive=self.step or self.tuner is not None)
+        _progress(self.sys_, interactive=self.step or self.tuner is not None, show=self.lead)
         if self.tuner is not None:
             self.tuner.poll(self.sys_)
         if self.step:
             input("\n[step] Enter for next frame... ")
 
 
-def _progress(sys_, interactive: bool = False, every: int = 30) -> None:
-    """One progress line per frame, rewritten in place.  The pipeline is
-    not drained every frame (that would serialize the run at its
-    keyframes): counts not yet validated print as ``?``, and it is flushed
-    every ``every`` frames, or every frame when ``interactive``."""
+def _progress(sys_, interactive: bool = False, every: int = 30, show: bool = True) -> None:
+    """One progress line per frame, rewritten in place (printed where
+    ``show``; every rank of a parallel run flushes at the same frames).
+    The pipeline is not drained every frame (that would serialize the run
+    at its keyframes): counts not yet validated print as ``?``, and it is
+    flushed every ``every`` frames, or every frame when ``interactive``."""
     m = sys_._metrics[-1]
     if interactive or m["frame"] % every == 0:
         sys_.flush()
         m = sys_._metrics[-1]
+    if not show:
+        return
     matches = f"{m['matches']:4d}" if m["matches"] >= 0 else "   ?"
     inliers = f"{m['inliers']:4d}" if m["inliers"] >= 0 else "   ?"
     print(f"\rframe {m['frame']:5d} [{m['state']:>15s}] "

@@ -54,8 +54,9 @@ def _wait_for(obj) -> None:
     """Block until the work queued so far on the CUDA devices that hold the
     tensors of ``obj`` is done (one event per device); no-op on the CPU."""
     for dev in {t.device for t in _tensors(obj) if t.is_cuda}:
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(dev))
+        with torch.cuda.device(dev):
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(dev))
         ev.synchronize()
 
 

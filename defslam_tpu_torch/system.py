@@ -118,15 +118,19 @@ class _InFlight(NamedTuple):
     readback: Readback  # (stats, pose) on their way to the host
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None, cfg: Config | None = None) -> torch.device:
     """``None`` means CUDA; raises when CUDA is asked for and absent (the
-    port never falls back to the CPU on its own)."""
+    port never falls back to the CPU on its own).  With ``parallel.enabled``
+    in ``cfg``, a rank of a world of more than one process takes its own
+    card (``parallel.rank_device``)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "defslam_tpu_torch runs on a CUDA device and none is available; "
             'pass device="cpu" to run on the CPU'
         )
+    if dev.type == "cuda" and cfg is not None and cfg.parallel.enabled:
+        dev = parallel.rank_device(dev, parallel.place(cfg), torch.cuda.device_count())
     return dev
 
 
@@ -142,7 +146,7 @@ class System:
         if self.cfg.viewer.save_frames and importlib.util.find_spec("matplotlib") is None:
             raise ImportError("viewer.save_frames draws the frames with matplotlib, "
                               "which is not installed")
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, self.cfg)
         # the multi-device path (Config.parallel): the group of ranks, or None
         self.group = None
         if self.cfg.parallel.enabled:

@@ -163,9 +163,10 @@ class Readback:
 
     On CUDA, :meth:`start` copies each tensor without blocking into a
     pinned host buffer on its device's current stream and records an event
-    after the copies; the buffers live in this object until :meth:`get`
-    has waited for that event.  On the CPU it is a plain copy that is
-    always ready: the device the caller chose, not a fallback."""
+    of that device after the copies, whichever card is current; the
+    buffers live in this object until :meth:`get` has waited for that
+    event.  On the CPU it is a plain copy that is always ready: the device
+    the caller chose, not a fallback."""
 
     def __init__(self, host: list[torch.Tensor], event):
         self._host = host
@@ -180,12 +181,13 @@ class Readback:
         if len(cuda) != len(tensors) or len(set(cuda)) != 1:
             raise ValueError("Readback.start: the tensors must all be on one CUDA device")
         host = []
-        for t in tensors:
-            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            h.copy_(t, non_blocking=True)
-            host.append(h)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(cuda[0]))
+        with torch.cuda.device(cuda[0]):  # the tensors' card, not the current one
+            for t in tensors:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                host.append(h)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(cuda[0]))
         return cls(host, event)
 
     def ready(self) -> bool:

@@ -380,3 +380,67 @@ def test_rigid_system_on_the_card_gives_the_cpu_run(cuda_device):
             assert np.abs(g[1] - c[1]).max() <= 1e-3
         assert abs(g[2] - c[2]) <= 0.02 * c[2]
     assert rows["cuda"][-1][0] == "OK"
+
+
+@pytest.fixture
+def last_card(cuda_device):
+    """The last visible card, with cuda:0 current; skips with one card."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA cards: the last one runs while cuda:0 is current")
+    assert torch.cuda.current_device() == 0
+    return torch.device("cuda", n - 1)
+
+
+@pytest.mark.cuda
+def test_tracking_slice_on_the_last_card_equals_card_0(last_card):
+    """The small System (8 frames, 160x120, synchronous, keyframes at 0 and
+    4) on the last card, the process current on cuda:0, gives card 0's run
+    bit for bit; B1 and B2 launch on that card."""
+    runs = {}
+    for dev in (torch.device("cuda", 0), last_card):
+        s, frames = _small_pipelined_system(dev, keyframe_period=4, pipelined=False)
+        before = dict(cuda_build.LAUNCHES)
+        for t, f in enumerate(frames):
+            s.track_monocular(f, float(t))
+        s.flush()
+        assert s.device == dev and s.pose.device == dev
+        launched = {k: cuda_build.LAUNCHES[k] - before.get(k, 0) for k in cuda_build.LAUNCHES}
+        assert launched["hamming_matrix"] >= 7 and launched["windowed_match"] == 2
+        runs[dev.index] = (s._metrics, [T for _, T in s.trajectory])
+    assert torch.cuda.current_device() == 0
+    (rows0, traj0), (rows1, traj1) = runs[0], runs[last_card.index]
+    assert rows1 == rows0 and [r["state"] for r in rows0] == ["OK"] * 8
+    assert all(np.array_equal(a, b) for a, b in zip(traj0, traj1))
+
+
+@pytest.mark.cuda
+def test_readback_on_the_last_card(last_card):
+    """``utils.Readback`` of tensors on the last card while cuda:0 is
+    current: the event is that card's, and the values arrive."""
+    from defslam_tpu_torch.utils import Readback
+
+    x = torch.arange(1000, dtype=torch.int32, device=last_card)
+    y = torch.randn(4, 4, device=last_card)
+    rb = Readback.start((x, y))
+    a, b = rb.get()
+    assert rb.ready() and torch.cuda.current_device() == 0
+    assert np.array_equal(a, np.arange(1000)) and np.array_equal(b, y.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_graph_timing_captures_on_the_last_card(last_card):
+    """``chip_smoke.cuda_graph_ms`` with the last card current captures its
+    launches there: 20 B1 launches at 2048x1536 take at least the kernel's
+    bound (0.0038 ms each); an empty graph replays in ~0.0005."""
+    from chip_smoke import cuda_graph_ms
+
+    rng = np.random.default_rng(3)
+    a, b = (torch.as_tensor(rng.integers(-2**31, 2**31, (n, 8)).astype(np.int32), device=last_card)
+            for n in (2048, 1536))
+    out = torch.empty((2048, 1536), dtype=torch.int32, device=last_card)
+    with torch.cuda.device(last_card):
+        before = cuda_build.LAUNCHES["hamming_matrix"]
+        ms = cuda_graph_ms(lambda: hamming.hamming_matrix(a, b, out=out))
+    assert ms > 0.0038 and cuda_build.LAUNCHES["hamming_matrix"] > before
+    assert torch.equal(out, hamming.hamming_matrix_plain(a, b))
