@@ -183,11 +183,31 @@ Phases, in order; any failure exits non-zero and prints no result line:
    solvers within phase 13's world-2 limits of world 1 (the Schur problem
    at 4 u-rows a rank).  The ranks then run the synth app as a world of 4,
    and ``cli synth`` started alone with ``n_devices`` 0 spans the 4 cards
-   and must write the same files.  Times, not gated: the parallel frame
-   p50 / max, keyframe frames, all-reduces per frame, the SfT's host ms
-   and one all-reduce alone at its buffer's size, at world 4 and world 1,
-   each also with ``TORCH_NCCL_AVOID_RECORD_STREAMS=1`` (for those runs
-   only), on frames 0-11 after a warm-up;
+   and must write the same files (the app's process is rank 0 of the
+   world its System makes).  Then the world a System makes in this process
+   (``parallel.driver``): ``System(cfg)`` with ``n_devices`` 0, this
+   process rank 0 on ``cuda:0`` and its workers on ``cuda:1-3`` (each
+   reports its card), on the 24 frames twice (``reset`` between): the
+   ranks bit-equal (their digests), the runs bit-equal, rank 0 bit-equal to
+   rank 0 of the launch, B1 and B2 launched on every rank as there
+   (every rank's counts set to 0 before the run and read after it), no
+   host wait on rank 0 on a frame without a keyframe.  The ``mono`` app at
+   world 4 reading an MJPG video of the 24 frames on rank 0 alone, with a
+   ``--tune`` file written at frame 12: its files equal those of an
+   in-process world-4 System given the decoded frames and
+   ``apply_tuning``.  Times, not gated: the parallel frame p50 / max,
+   keyframe frames, all-reduces per frame, the SfT's host ms and one
+   all-reduce alone at its buffer's size, at world 4 and world 1, each
+   also with ``TORCH_NCCL_AVOID_RECORD_STREAMS=1`` (for those runs only),
+   on frames 0-11 after a warm-up; the in-process world's frame p50
+   against the launch's, its start, the host us of a forwarded call, and
+   a 640x480 float32 frame handed from rank 0 to the ranks of the launch
+   pickled on a gloo group (the driver's way) and as a gloo header plus
+   an NCCL broadcast of rank 0's device copy (host us, delivery us, bit
+   for bit).  Last, the worker on ``cuda:2`` killed 1 s into a run: rank
+   0 raises ``RuntimeError`` naming rank 2 within the collective timeout
+   plus a few seconds, no worker is left, no group is up, and a new
+   System comes up on the four cards and tracks;
 16. print a ``timing`` line, one ``{"kernels": [...]}`` line, then the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -210,10 +230,12 @@ import os
 import pickle
 import re
 import shutil
+import signal
 import statistics
 import struct
 import subprocess
 import sys
+import threading
 import time
 import zlib
 from concurrent.futures import ProcessPoolExecutor
@@ -2097,10 +2119,11 @@ class ShardProbe:
 
 
 def parallel_run(frames, cfg: Config, device, check_waits: bool = False, perturb: float = 0.0,
-                 keep_group: bool = False):
+                 keep_group: bool = False, system: System | None = None):
     """``System`` with ``parallel.enabled`` (world 1, or a rank of the
     launch this process belongs to; the group brought up first with the
-    phase's collective timeout) on the frames, keyframes on.  Per frame:
+    phase's collective timeout; or ``system``, a System already built) on
+    the frames, keyframes on.  Per frame:
     host ms (synchronized on the card), all-reduce calls and bytes; per
     keyframe frame the CUDA-event ms from the chain's start to the frame's
     end (chain and re-anchor) and of the chain alone.  With
@@ -2110,8 +2133,11 @@ def parallel_run(frames, cfg: Config, device, check_waits: bool = False, perturb
     by (1 + N(0, perturb)) after frame 0 (the probe); ``keep_group``
     leaves the process group up.  Returns (system, per-frame rows)."""
     device = torch.device(device)
-    parallel.init_distributed(cfg, device, timeout=PAR_TIMEOUT_S)
-    s = System(cfg, device=device)
+    if system is None:
+        parallel.init_distributed(cfg, device, timeout=PAR_TIMEOUT_S)
+        s = System(cfg, device=device)
+    else:
+        s = system
     cuda = device.type == "cuda"
     starts = []
     chain = CudaSpans() if cuda else None
@@ -2623,6 +2649,8 @@ def multicard_rank(work: str, mode: str) -> int:
         out["repeats"] = same_run(s, s2)
         out["waits"] = [dict(frame=r["frame"], mode=r["wait_mode"], waits=r["waits"],
                              where=r["where"]) for r in rows2 if r["wait_mode"]]
+    if mode == "full" and s.device.type == "cuda":
+        out["transport"] = frame_transport(np.asarray(job["frames"][0]), s.device)
     _, timed = parallel_run(frames[:MULTI_TIMING_FRAMES], pcfg, dev, keep_group=True)
     group = sharded.make_group(0)
     shards = shard_problems(group, job["inputs"], s.device)
@@ -2636,6 +2664,53 @@ def multicard_rank(work: str, mode: str) -> int:
                                    job["cli_frames"]) + ["--device", job["device"]])
     parallel.shutdown()
     return 0
+
+
+TRANSPORT_REPS = 30
+
+
+def frame_transport(frame: np.ndarray, dev) -> dict:
+    """Two ways for rank 0 to hand a frame to the other ranks, on every
+    rank of a launched world (each holds the frame, to check what it
+    received): the pickled frame in one broadcast on a gloo group (what
+    ``parallel.driver`` sends), and a pickled header on that group then an
+    NCCL broadcast of rank 0's device copy (uploaded from pinned memory).
+    Per frame, medians over ``TRANSPORT_REPS`` after a barrier: the host
+    us until the call returns on this rank, and for NCCL also until the
+    frame is on the card (synchronized); whether every frame arrived bit
+    for bit.  The frame is float32, as ``load_video`` and the render
+    give it."""
+    dist = torch.distributed
+    calls = dist.new_group(backend="gloo")
+    rank = dist.get_rank()
+    frame = np.ascontiguousarray(frame, dtype=np.float32)
+    times = collections.defaultdict(list)
+    exact = {"gloo_pickle": True, "nccl_device": True}
+    for _ in range(TRANSPORT_REPS):
+        dist.barrier(group=calls)
+        t0 = time.perf_counter()
+        box = [frame if rank == 0 else None]
+        dist.broadcast_object_list(box, src=0, group=calls)
+        times["gloo_pickle_us"].append((time.perf_counter() - t0) * 1e6)
+        exact["gloo_pickle"] &= bool(np.array_equal(box[0], frame))
+        dist.barrier(group=calls)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        head = [frame.shape if rank == 0 else None]
+        dist.broadcast_object_list(head, src=0, group=calls)
+        if rank == 0:
+            t = torch.from_numpy(frame).pin_memory().to(dev, non_blocking=True)
+        else:
+            t = torch.empty(head[0], dtype=torch.float32, device=dev)
+        dist.broadcast(t, src=0)
+        times["nccl_host_us"].append((time.perf_counter() - t0) * 1e6)
+        torch.cuda.synchronize(dev)
+        times["nccl_delivered_us"].append((time.perf_counter() - t0) * 1e6)
+        exact["nccl_device"] &= bool(np.array_equal(t.cpu().numpy(), frame))
+    out = {k: statistics.median(v) for k, v in times.items()}
+    out.update({"bytes": frame.nbytes, "shape": list(frame.shape), "bit_exact": exact})
+    dist.destroy_process_group(calls)
+    return out
 
 
 def nccl_transport(logdir: str) -> dict:
@@ -2877,6 +2952,10 @@ def multicard_phase(seq, cfg: Config, dev, rates: dict | None = None) -> dict:
     if rc != 0 or differ:
         raise SystemExit(f"multicard: the synth app at world 4 exited {rc}, files {differ}")
 
+    # ---- 6, 7. the world a System makes in this process (parallel.driver)
+    out["driven"] = driven_world(frames, cfg, dev, ranks[0], n_kf, swaps)
+    out["driven_app"] = driven_app(seq, dev, root)
+
     # ---- 5. times at world 4 and world 1, without and with
     # TORCH_NCCL_AVOID_RECORD_STREAMS=1 (set for these runs only)
     timing = {"world4": ranks[0]["timing"]}
@@ -2892,9 +2971,260 @@ def multicard_phase(seq, cfg: Config, dev, rates: dict | None = None) -> dict:
     timed = launch_ranks(os.path.join(root, "world4_avoid_record_streams"), job, "timing",
                          env=AVOID_RECORD_STREAMS)
     timing["world4_avoid_record_streams"] = timed[0]["timing"]
+    timing["driven"] = out["driven"]["timing"]
+    timing["transport"] = ranks[0].get("transport")
     out["timing"] = timing
-    out["launches"] = ranks[0]["launches"]
+    out["launches"] = out["driven"]["launches_by_rank"][0]
     print("multicard timing", json.dumps(timing), flush=True)
+    # ---- 8 (last: it kills a rank). failure on the cards
+    out["driven_failure"] = driven_failure(frames, cfg, dev)
+    return out
+
+
+def driven_config(cfg: Config, dev) -> Config:
+    """``cfg`` at world 4 made by the System itself: ``n_devices`` 0 (every
+    card), or 4 on the CPU (a rehearsal, where 0 means 1)."""
+    n = 0 if torch.device(dev).type == "cuda" else MULTI_WORLD
+    return dataclasses.replace(cfg, parallel=ParallelConfig(enabled=True, n_devices=n))
+
+
+def driven_devices(s: System, dev) -> list[str]:
+    """The ranks' devices of a driven System; raises unless they are
+    ``cuda:0-3`` (or the CPU's)."""
+    want = ([f"cuda:{k}" for k in range(MULTI_WORLD)] if torch.device(dev).type == "cuda"
+            else ["cpu"] * MULTI_WORLD)
+    if s._driver is None or s._driver.devices != want:
+        raise SystemExit(f"multicard driven: the ranks are on "
+                         f"{None if s._driver is None else s._driver.devices}, not {want}")
+    return s._driver.devices
+
+
+def _json(obj):
+    return json.loads(json.dumps(obj, default=str))
+
+
+def driven_world(frames, cfg: Config, dev, launched: dict, n_kf: int, swaps: int) -> dict:
+    """Phase 15's library System at world 4: ``System(cfg)`` with
+    ``n_devices`` 0 in this process, which becomes rank 0 on ``cuda:0`` and
+    starts ranks 1-3 on ``cuda:1-3`` (``parallel.driver``).  The 24 frames
+    twice (``reset`` between), every rank's kernel counts set to 0 before
+    each run and read after it; the second run's frames without a keyframe
+    under ``host_waits("error")`` on rank 0.  The ranks bit-equal (their
+    digests), the runs bit-equal, rank 0 bit-equal to rank 0 of the
+    launched world 4 (``launched``), B1 and B2 launched on every rank as
+    there.  Times, as the launch's timed run takes them (frames 0-11, the
+    p50 over frames 1-11 without a keyframe), at this process's torch
+    threads and at the launch's share of the cores, each with the host us
+    of a forwarded call that does nothing else
+    (``deactivate_localization_mode``)."""
+    from defslam_tpu_torch.parallel import driver
+
+    pcfg = driven_config(cfg, dev)
+    t0 = time.perf_counter()
+    s = System(pcfg, device=torch.device(dev).type)
+    out = {"start_s": time.perf_counter() - t0, "devices": driven_devices(s, dev)}
+    print("multicard driven world 4: devices", out["devices"], "start s", out["start_s"],
+          flush=True)
+    runs = []
+    try:
+        for k in range(2):
+            if k:
+                s.reset()
+            s._driver.gather(s, profiling.kernel_launches, True)
+            n0 = len(s._metrics)
+            _, rows = parallel_run(frames, pcfg, dev, check_waits=k == 1, keep_group=True,
+                                   system=s)
+            runs.append({"metrics": _json(s._metrics[n0:]),
+                         "traj": np.stack([np.asarray(T) for _, T in s.trajectory]),
+                         "rows": rows, "launches": s._driver.gather(s, profiling.kernel_launches),
+                         "digests": s._driver.gather(s, driver.state_digest)})
+        # timed as the launch's ranks are (frames 0-11, no host-wait
+        # checks), at this process's torch threads and at the launch's
+        # share of the cores; a forwarded call that does nothing else
+        threads = torch.get_num_threads()
+        timing = {}
+        # (on the CPU the ranks' results, and so their collectives, depend on
+        # the thread count: the workers took rank 0's at the start)
+        share = max(1, (os.cpu_count() or 1) // MULTI_WORLD)
+        for n in (threads, share) if torch.device(dev).type == "cuda" else (threads,):
+            torch.set_num_threads(n)
+            s.reset()
+            _, rows = parallel_run(frames[:MULTI_TIMING_FRAMES], pcfg, dev, keep_group=True,
+                                   system=s)
+            t1 = time.perf_counter()
+            for _ in range(FORWARD_CALLS):
+                s.deactivate_localization_mode()
+            timing[f"threads_{n}"] = {
+                "frame_p50_ms": statistics.median(r["ms"] for r in rows[1:] if not r["keyframe"]),
+                "frame_max_ms": max(r["ms"] for r in rows[1:]),
+                "forward_us": (time.perf_counter() - t1) / FORWARD_CALLS * 1e6}
+        torch.set_num_threads(threads)
+    finally:
+        s.shutdown()
+    waits = [dict(frame=r["frame"], mode=r["wait_mode"], waits=r["waits"], where=r["where"])
+             for r in runs[1]["rows"] if r["wait_mode"]]
+    out.update({
+        "ranks_bit_equal": [len(set(r["digests"])) == 1 for r in runs],
+        "runs_bit_equal": runs[0]["metrics"] == runs[1]["metrics"] and bool(
+            np.array_equal(runs[0]["traj"], runs[1]["traj"])),
+        "launched_rank0_bit_equal": runs[0]["metrics"] == launched["metrics"] and bool(
+            np.array_equal(runs[0]["traj"], launched["arrays"]["traj"])),
+        "launches_by_rank": runs[0]["launches"], "host_waits_rank0": waits,
+        "timing": {**timing, "launched_frame_p50_ms": launched["timing"]["frame_p50_ms"],
+                   "start_s": out["start_s"]}})
+    print("multicard driven world 4", json.dumps({k: out[k] for k in (
+        "ranks_bit_equal", "runs_bit_equal", "launched_rank0_bit_equal", "launches_by_rank",
+        "timing")}), flush=True)
+    if not all(out["ranks_bit_equal"]) or not out["runs_bit_equal"]:
+        raise SystemExit("multicard driven: the ranks or the two runs differ")
+    if not out["launched_rank0_bit_equal"]:
+        raise SystemExit("multicard driven: rank 0 differs from rank 0 of the launched world 4")
+    if torch.device(dev).type == "cuda":
+        launches_and_waits_held(
+            [{"rank": r, "launches": la, "waits": waits if r == 0 else []}
+             for r, la in enumerate(runs[0]["launches"])], len(frames), swaps, n_kf,
+            "multicard driven world 4")
+    return out
+
+
+FORWARD_CALLS = 200
+DRIVEN_TUNE_AT = 12  # the mono app's tuning file appears at this frame
+DRIVEN_TUNING = "sft.lm_iterations: 40\n"
+
+
+def driven_app(seq, dev, root: str) -> dict:
+    """Phase 15's ``mono`` app at world 4: ``cli.main`` in this process
+    (rank 0, the one that reads) on an MJPG video of the 24 frames that
+    OpenCV writes (where it is installed; else the rendered frames in
+    ``load_video``'s place), with ``--tune`` on a file that the reader
+    writes before frame ``DRIVEN_TUNE_AT``.  Its files must equal, byte for
+    byte, those of an in-process world-4 System given the decoded frames,
+    the app's flushes and ``apply_tuning`` after that frame."""
+    from defslam_tpu_torch.config import load_raw_yaml
+    from defslam_tpu_torch.io import datasets
+    from defslam_tpu_torch.viewer import export
+
+    work = os.path.join(root, "driven_app")
+    os.makedirs(work)
+    frames = [np.clip(f, 0, 255).astype(np.uint8) for f in seq.frames]
+    video = os.path.join(work, "seq.avi")
+    real = datasets.load_video
+    try:
+        import cv2
+
+        h, w = frames[0].shape
+        vw = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"MJPG"), 7.0, (w, h), isColor=False)
+        for f in frames:
+            vw.write(f)
+        vw.release()
+        decoded = list(real(video))
+    except ImportError:
+        decoded = [(f.astype(np.float32), t / 7.0) for t, f in enumerate(frames)]
+    tune = os.path.join(work, "tune.yaml")
+
+    def reader(_src):
+        for t, item in enumerate(decoded):
+            if t == DRIVEN_TUNE_AT:
+                with open(tune, "w") as f:
+                    f.write(DRIVEN_TUNING)
+            yield item
+
+    def settings(name: str) -> str:
+        c = seq.camera
+        path = os.path.join(work, f"{name}.yaml")
+        n = 0 if torch.device(dev).type == "cuda" else MULTI_WORLD
+        with open(path, "w") as f:
+            f.write(f"camera:\n  fx: {c.fx}\n  fy: {c.fy}\n  cx: {c.cx}\n  cy: {c.cy}\n"
+                    f"  width: {c.width}\n  height: {c.height}\n"
+                    f"parallel:\n  enabled: true\n  n_devices: {n}\n"
+                    f"output_dir: {os.path.join(work, name)}\n")
+        return path
+
+    t0 = time.perf_counter()
+    datasets.load_video = reader
+    try:
+        rc = cli.main(["mono", settings("app"), video, "--tune", tune, "--device", dev.type])
+    finally:
+        datasets.load_video = real
+    out = {"app_s": time.perf_counter() - t0, "frames": len(decoded),
+           "video_decoded": video if os.path.exists(video) else None}
+    print(flush=True)
+    cfg = Config.from_yaml(settings("ref"))
+    s = System(cfg, device=dev.type)
+    try:
+        driven_devices(s, dev)
+        for t, (img, ts) in enumerate(decoded):
+            s.track_monocular(img, ts)
+            cli._progress(s, interactive=True, show=False)
+            if t == DRIVEN_TUNE_AT:
+                s.apply_tuning(load_raw_yaml(tune))
+        s.write_metrics()
+        export.snapshot(s, cfg.output_dir)
+    finally:
+        s.shutdown()
+    out["states"] = [r[-1] for r in _app_rows(os.path.join(work, "app"))]
+    out["differing_files"] = differing_files(os.path.join(work, "app"), cfg.output_dir)
+    print("multicard driven mono app: exit", rc, json.dumps(out), flush=True)
+    if rc != 0 or out["differing_files"] or len(out["states"]) != len(decoded):
+        raise SystemExit(f"multicard driven: the mono app exited {rc}, files "
+                         f"{out['differing_files']}, {len(out['states'])} rows")
+    return out
+
+
+DRIVEN_KILLED = 2  # the rank whose worker phase 15 kills
+
+
+def process_alive(pid: int) -> bool:
+    """Whether process ``pid`` runs (a zombie does not)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] not in ("Z", "X")
+    except FileNotFoundError:
+        return False
+
+
+def driven_failure(frames, cfg: Config, dev) -> dict:
+    """Phase 15's failure check: a driven world 4 tracks frames, and its
+    worker on ``cuda:2`` is killed 1 s into them; rank 0 must raise
+    ``RuntimeError`` naming rank 2 within the collective timeout plus a
+    few seconds, no worker process may be left nor the group up, and a
+    new System must then come up on the four cards and track."""
+    from defslam_tpu_torch.parallel import driver
+
+    pcfg = driven_config(cfg, dev)
+    s = System(pcfg, device=torch.device(dev).type)
+    driven_devices(s, dev)
+    pids = s._driver.pids
+    killer = threading.Timer(1.0, os.kill, (pids[DRIVEN_KILLED], signal.SIGKILL))
+    out = {"raised": None}
+    t0 = time.monotonic()
+    killer.start()
+    try:
+        for t, frame in enumerate(frames):
+            s.track_monocular(frame, float(t))
+        s.flush()
+    except RuntimeError as e:
+        out.update(raised=str(e), raise_s=time.monotonic() - t0)
+    killer.join()
+    time.sleep(0.5)
+    out["left"] = [p for p in pids.values() if process_alive(p)]
+    out["group_up"] = torch.distributed.is_initialized()
+    s2 = System(pcfg, device=torch.device(dev).type)
+    try:
+        out["new_devices"] = driven_devices(s2, dev)
+        for t, frame in enumerate(frames[:3]):
+            s2.track_monocular(frame, float(t))
+        s2.flush()
+        out["new_states"] = [m["state"] for m in s2._metrics]
+        out["new_ranks_bit_equal"] = len(set(s2._driver.gather(s2, driver.state_digest))) == 1
+    finally:
+        s2.shutdown()
+    print("multicard driven failure", json.dumps(out), flush=True)
+    bound = driver.COLLECTIVE_TIMEOUT_S + driver.EXIT_WAIT_S
+    if (out["raised"] is None or f"rank {DRIVEN_KILLED} exited" not in out["raised"]
+            or out["raise_s"] > bound or out["left"] or out["group_up"]
+            or out["new_states"] != ["OK"] * 3 or not out["new_ranks_bit_equal"]):
+        raise SystemExit(f"multicard driven: the failure check failed: {out}")
     return out
 
 

@@ -44,6 +44,14 @@ The System runs its default pipelined protocol: the progress line shows
 ``?`` for counts not yet validated, and the pipeline is drained every 30
 frames, every frame under ``--step`` / ``--tune`` (which want the
 validated state), and before the metrics files are written.
+
+With ``parallel.enabled`` the app's System spans the devices
+``parallel.n_devices`` asks for (0: every visible card, ``parallel.driver``):
+this process is rank 0, and it alone reads the input (a camera too), polls
+``--tune``, waits at ``--step``, prints and writes; the other ranks get
+each frame and each tuning from it.  Run as one rank of a world started by
+hand (``parallel.launch``, a ``coordinator``), every rank reads the input
+and rank 0 alone writes.
 """
 
 from __future__ import annotations
@@ -98,12 +106,10 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
 
-    import torch
-
     from defslam_tpu_torch import parallel, profiling
     from defslam_tpu_torch.config import Config
     from defslam_tpu_torch.io import datasets
-    from defslam_tpu_torch.parallel import launch
+    from defslam_tpu_torch.parallel import driver
     from defslam_tpu_torch.system import System
     from defslam_tpu_torch.viewer import export
 
@@ -114,20 +120,17 @@ def main(argv=None) -> int:
         cfg = Config.from_yaml(args.config) if args.config else Config()
     else:
         cfg = Config.from_yaml(args.yaml)
+    try:
+        driver.spans(cfg, args.device)  # refuses a card index for a world of several ranks
+    except ValueError as e:
+        raise SystemExit(f"--device: {e}") from None
     here = parallel.place(cfg)
-    world = _world(cfg, args, here)
-    if world > 1 and not here.rendezvous:
-        # this process starts the ranks; each runs this command again
-        if torch.device(args.device).index is not None:
-            raise SystemExit(f"--device {args.device} names one card for a world of {world} "
-                             "ranks: pass --device cuda (rank r takes cuda:r)")
-        argv = sys.argv[1:] if argv is None else list(argv)
-        return launch.launch([sys.executable, "-m", "defslam_tpu_torch.cli", *argv], world,
-                             args.device)
-    lead = not cfg.parallel.enabled or here.rank == 0  # the one rank that writes and prints
+    # the one process that reads the input, writes and prints: this one,
+    # which is rank 0 of the world its System makes, unless it is another
+    # rank of a world started by hand (parallel.launch, a coordinator)
+    lead = not cfg.parallel.enabled or here.rank == 0
     if not lead:
-        cfg = dataclasses.replace(cfg, output_dir="", viewer=dataclasses.replace(
-            cfg.viewer, save_frames=False))
+        cfg = driver.worker_config(cfg)
     if args.mode == "synth":
         from defslam_tpu_torch.io.synthetic import make_sequence
 
@@ -166,28 +169,6 @@ def main(argv=None) -> int:
               f"results in {os.path.abspath(sys_.cfg.output_dir)}")
     sys_.shutdown()  # drains the pipeline; destroys the process group in parallel mode
     return 0
-
-
-def _world(cfg, args, here) -> int:
-    """The world of ranks this run takes: with ``parallel.enabled``, the
-    world this process is a rank of (``here``), or else the one
-    ``parallel.n_devices`` asks for (0: every visible card, 1 on the CPU);
-    else 1.  A world of more than one rank reads its input on every rank,
-    so it takes no camera, and no ``--step`` or ``--tune`` (one rank would
-    act on what the others do not see)."""
-    from defslam_tpu_torch.parallel import launch
-
-    pc = cfg.parallel
-    if not pc.enabled:
-        return 1
-    world = here.world if here.rendezvous else launch.target_world(pc.n_devices, args.device)
-    if world > 1:
-        if args.mode == "mono" and args.source.isdigit():
-            raise SystemExit("a camera feeds one process: parallel mode at a world of "
-                             f"{world} reads the input on every rank")
-        if args.step or args.tune:
-            raise SystemExit(f"--step and --tune act on one rank: not at a world of {world}")
-    return world
 
 
 def _orbslam(args, t_start: float) -> int:

@@ -9,9 +9,14 @@ sharded work and all of the replicated work.
 - :mod:`defslam_tpu_torch.parallel.sharded`: the group of ranks and the
   sharded solvers (pair-sharded warp fits, point-sharded normal solves,
   observation-sharded SfT with all-reduced normal equations).
+- :mod:`defslam_tpu_torch.parallel.driver` and
+  :mod:`~defslam_tpu_torch.parallel.worker`: a ``System`` built in a plain
+  process spans the devices ``parallel.n_devices`` asks for, as the JAX
+  System does: that process is rank 0 and sends each call to worker
+  ranks, one card each.
 - :mod:`defslam_tpu_torch.parallel.launch`: one launch of N ranks, one card
-  each (the apps start it when ``parallel.n_devices`` asks for more than
-  one device).
+  each, for a world started by hand, and the process layer that the
+  driver starts its workers with.
 - :func:`place` / :func:`rank_device`: where this process sits in the
   world, and its card.
 - :func:`init_distributed` / :func:`shutdown`: the process group.
@@ -86,16 +91,18 @@ def rank_device(device, where: Place, n_cards: int) -> torch.device:
     return torch.device("cuda", local)
 
 
-def init_distributed(cfg, device, timeout: float | None = None) -> bool:
+def init_distributed(cfg, device, timeout: float | None = None,
+                     where: Place | None = None) -> bool:
     """Bring up the default process group for ``Config.parallel`` on
     ``device``: NCCL for a CUDA device, gloo for the CPU.  The ranks meet
-    where :func:`place` says; a world of 1 without a rendezvous runs on an
-    in-process ``dist.HashStore`` (no port, no file).  For NCCL the rank's
-    card (:func:`rank_device`) becomes this process's current card and the
-    group's bound device.  ``timeout`` (seconds) bounds every collective,
-    so a rank that falls out of step fails instead of hanging.  Idempotent;
-    raises when the group that is up has another backend than ``device``
-    needs.  Returns whether the group spans more than one process."""
+    where ``where`` says (default :func:`place`); a world of 1 without a
+    rendezvous runs on an in-process ``dist.HashStore`` (no port, no
+    file).  For NCCL the rank's card (:func:`rank_device`) becomes this
+    process's current card and the group's bound device.  ``timeout``
+    (seconds) bounds every collective, so a rank that falls out of step
+    fails instead of hanging.  Idempotent; raises when the group that is
+    up has another backend than ``device`` needs.  Returns whether the
+    group spans more than one process."""
     dev = torch.device(device)
     backend = "nccl" if dev.type == "cuda" else "gloo"
     if dist.is_initialized():
@@ -104,7 +111,7 @@ def init_distributed(cfg, device, timeout: float | None = None) -> bool:
                 f"a {dist.get_backend()} process group is up; a {dev.type} "
                 f"System needs {backend}: call parallel.shutdown() first")
         return dist.get_world_size() > 1
-    where = place(cfg)
+    where = where or place(cfg)
     kw = {} if timeout is None else {"timeout": datetime.timedelta(seconds=timeout)}
     if backend == "nccl":
         card = rank_device(dev, where, torch.cuda.device_count())

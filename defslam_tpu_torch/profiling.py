@@ -12,7 +12,9 @@ Port of ``defslam_tpu/profiling.py``:
   for TensorBoard;
 - ``host_waits()``: the operations in a region that make the host wait
   for the card (``torch.cuda.set_sync_debug_mode``), counted by source
-  line.
+  line;
+- ``kernel_launches(system)``: this process's kernel launches by name, for
+  ``parallel.driver.Driver.gather`` to read on every rank.
 
 Enabled by ``DEFSLAM_PROFILE=1``; off by default, when the timers cost
 one branch (the hot path does not pay for observability).
@@ -134,3 +136,17 @@ def host_waits(mode: str = "warn"):
             torch.cuda.set_sync_debug_mode(0)
     counts.update(f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
                   if "called a synchronizing CUDA operation" in str(w.message))
+
+
+def kernel_launches(system=None, clear: bool = False) -> dict[str, int]:
+    """This process's hand-written kernel launches by name
+    (``ops.cuda_build.LAUNCHES``), set to 0 after the read with ``clear``.
+    Takes the rank's System, as a target of
+    ``parallel.driver.Driver.gather`` (``gather(s, kernel_launches)``
+    gives every rank's counts), and ignores it."""
+    from defslam_tpu_torch.ops import cuda_build
+
+    out = dict(cuda_build.LAUNCHES)
+    if clear:
+        cuda_build.LAUNCHES.clear()
+    return out

@@ -41,7 +41,12 @@ the port.
 
 ``parallel.enabled`` runs the JAX package's multi-device path over
 ``torch.distributed`` (one device per process; every rank runs the whole
-System on the same frames, see ``parallel``): the frame's SfT solve is
+System on the same frames, see ``parallel``).  Like the JAX System, one
+built in a plain process spans the devices ``parallel.n_devices`` asks for
+(0: every visible card): it becomes rank 0 and starts the other ranks as
+worker processes, to which it sends each call that changes state
+(``parallel.driver``); inside a launched rank it joins that world.  The
+frame's SfT solve is
 observation-sharded (``tracker.track_frame_parallel``), and keyframes go
 through the host-orchestrated chain (:meth:`System._insert_keyframe_legacy`:
 pair-sharded warp fits, point-sharded normal solves, three host reads (the
@@ -77,7 +82,7 @@ from defslam_tpu_torch.geometry import camera as cam
 from defslam_tpu_torch.mapping import mapper
 from defslam_tpu_torch.mapstore import state as store
 from defslam_tpu_torch.ops import bspline
-from defslam_tpu_torch.parallel import sharded
+from defslam_tpu_torch.parallel import driver, sharded
 from defslam_tpu_torch.template import mesh as meshmod
 from defslam_tpu_torch.tracking import pose_opt, tracker
 from defslam_tpu_torch.utils import Readback, put_
@@ -146,11 +151,19 @@ class System:
         if self.cfg.viewer.save_frames and importlib.util.find_spec("matplotlib") is None:
             raise ImportError("viewer.save_frames draws the frames with matplotlib, "
                               "which is not installed")
-        self.device = resolve_device(device, self.cfg)
-        # the multi-device path (Config.parallel): the group of ranks, or None
+        # the multi-device path (Config.parallel): the group of ranks, or
+        # None; and the driver of the world this System made, or None
         self.group = None
-        if self.cfg.parallel.enabled:
+        self._driver = None
+        world = driver.spans(self.cfg, "cuda" if device is None else device)
+        self.device = resolve_device(device, None if world else self.cfg)
+        drv = None
+        if world:
+            drv = driver.Driver(self.cfg, self.device, world)
+            self.device = drv.device
+        elif self.cfg.parallel.enabled:
             parallel.init_distributed(self.cfg, self.device)
+        if self.cfg.parallel.enabled:
             self.group = sharded.make_group(self.cfg.parallel.n_devices)
         self._derive_constants()
         self._localization_only = False
@@ -158,6 +171,7 @@ class System:
         self._kf_mark = None  # optional stage callback handed to keyframe_step
         self._gt_eval = None  # the GT harness, created by the first GT frame
         self.reset()
+        self._driver = drv  # from here on rank 0's calls go to the workers (reset is done there)
 
     def _derive_constants(self):
         """Camera matrix, retina domain, mesh topology and bending matrices
@@ -234,11 +248,13 @@ class System:
         self._finalize_pending_map()
 
     def shutdown(self):
-        """No threads to join; drain the pipeline, and in parallel mode
-        destroy the process group."""
+        """Drain the pipeline; in parallel mode destroy the process group,
+        and stop the workers of a world this System made."""
         self.flush()
         if self.group is not None:
             parallel.shutdown()
+        if self._driver is not None:
+            self._driver.close()
 
     def activate_localization_mode(self):
         self._localization_only = True
@@ -998,3 +1014,9 @@ class System:
         if self._gt_eval is not None:
             self._gt_eval.outdir = outdir
             self._gt_eval.write()
+
+
+# rank 0 of a world this System made sends each call that changes state or
+# runs a collective to every rank first (parallel.driver)
+for _name in driver.FORWARDED + driver.FLUSHED:
+    setattr(System, _name, driver.forwarding(getattr(System, _name)))
