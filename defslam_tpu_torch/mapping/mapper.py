@@ -34,6 +34,7 @@ from typing import Callable, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from defslam_tpu_torch import profiling
 from defslam_tpu_torch.config import Config
 from defslam_tpu_torch.frontend import Features
 from defslam_tpu_torch.geometry import se3
@@ -696,64 +697,69 @@ def _kf_step_a(kfs, points, pose, feats: Features, kp_of_point, inlier, K, dom, 
     read.  Returns (kfs, points, KFCarry)."""
     c = cfg
     p_cap = points.capacity
-    slot = _choose_slot(kfs, points, tmpl_ref_kf)
-
-    kfs, n_obs2 = store.insert_keyframe_from_matches(
-        kfs, points.n_obs, slot, pose, feats, kp_of_point, inlier, K, frame_id, points.xyz)
-    points = points._replace(n_obs=n_obs2)
+    with profiling.stage("keyframe.insert"):
+        slot = _choose_slot(kfs, points, tmpl_ref_kf)
+        kfs, n_obs2 = store.insert_keyframe_from_matches(
+            kfs, points.n_obs, slot, pose, feats, kp_of_point, inlier, K, frame_id, points.xyz)
+        points = points._replace(n_obs=n_obs2)
     mark("insert")
 
-    cp = covis_pairs(kfs.point_id, kfs.retina, kfs.valid, points.valid, slot, c)
-    batch = WarpBatch(uv1=cp.uv1, uv2=cp.uv2, mask=cp.mask, pair_valid=cp.pair_valid)
-    retina_s, kp_valid_s = take(kfs.retina, slot), take(kfs.kp_valid, slot)
-    # per-KF warp domain (DefKeyFrame.cc:94-133): all warps of the batch
-    # have the new keyframe as source, so one bbox domain serves them
-    if c.mapping.per_kf_domain:
-        dom_w = bbox_domain(retina_s, kp_valid_s, dom, margin=c.mapping.kf_domain_margin)
-        bend_w = bspline.bending_matrix_dyn(dom_w, c.mapping.warp_ctrl_u, c.mapping.warp_ctrl_v)
-    else:
-        dom_w, bend_w = dom, bend_warp
-    dps, ctrls = fit_warps(batch, dom_w, bend_w, c)
+    with profiling.stage("keyframe.warps"):
+        cp = covis_pairs(kfs.point_id, kfs.retina, kfs.valid, points.valid, slot, c)
+        batch = WarpBatch(uv1=cp.uv1, uv2=cp.uv2, mask=cp.mask, pair_valid=cp.pair_valid)
+        retina_s, kp_valid_s = take(kfs.retina, slot), take(kfs.kp_valid, slot)
+        # per-KF warp domain (DefKeyFrame.cc:94-133): all warps of the batch
+        # have the new keyframe as source, so one bbox domain serves them
+        if c.mapping.per_kf_domain:
+            dom_w = bbox_domain(retina_s, kp_valid_s, dom, margin=c.mapping.kf_domain_margin)
+            bend_w = bspline.bending_matrix_dyn(dom_w, c.mapping.warp_ctrl_u,
+                                                c.mapping.warp_ctrl_v)
+        else:
+            dom_w, bend_w = dom, bend_warp
+        dps, ctrls = fit_warps(batch, dom_w, bend_w, c)
     mark("warps")
 
-    best, _dist = densify_matches(
-        ctrls, retina_s, kp_valid_s, take(kfs.desc, slot),
-        kfs.retina[cp.pair_kf], kfs.kp_valid[cp.pair_kf], kfs.desc[cp.pair_kf],
-        dom_w, cp.pair_valid, c,
-    )
-    best = torch.where(cp.pair_valid[:, None], best, -1)
-    point_id2, n_obs3 = apply_densify(kfs.point_id, points.n_obs, slot, cp.pair_kf, best)
-    kfs = kfs._replace(point_id=point_id2)
-    points = points._replace(n_obs=n_obs3)
-    points = points._replace(desc=distinctive_descriptors(
-        kfs.point_id, kfs.valid, kfs.kp_valid, kfs.desc, points.desc))
+    with profiling.stage("keyframe.densify"):
+        best, _dist = densify_matches(
+            ctrls, retina_s, kp_valid_s, take(kfs.desc, slot),
+            kfs.retina[cp.pair_kf], kfs.kp_valid[cp.pair_kf], kfs.desc[cp.pair_kf],
+            dom_w, cp.pair_valid, c,
+        )
+        best = torch.where(cp.pair_valid[:, None], best, -1)
+        point_id2, n_obs3 = apply_densify(kfs.point_id, points.n_obs, slot, cp.pair_kf, best)
+        kfs = kfs._replace(point_id=point_id2)
+        points = points._replace(n_obs=n_obs3)
+        points = points._replace(desc=distinctive_descriptors(
+            kfs.point_id, kfs.valid, kfs.kp_valid, kfs.desc, points.desc))
     mark("densify", best=best)
 
-    obs, obs_dropped = accumulate_obs_device(
-        cp.pid_table, dps.mask, cp.uv1, dps.warped, dps.J12, dps.Huu, dps.Hvv, p_cap, OBS_CAP)
-    nres = solve_normals_compact(
-        obs, points.norm_k0, min(feats.capacity, p_cap),
-        num_iters=c.mapping.normal_lm_iterations,
-    )
-    # covariance gate (NormalEstimator.cc:159); gated normals also stay out
-    # of the Sim(3) registration through norm_valid
-    solved_ok = normal_reliability_gate(nres, c.regularizer.reliability)
-    points = points._replace(
-        norm_k0=torch.where(solved_ok[:, None], nres.k, points.norm_k0))
-    pid_row = take(kfs.point_id, slot)
-    norm_k, norm_valid, _ = write_normals(
-        kfs.norm_k, kfs.norm_valid, slot, pid_row, nres.k, solved_ok)
-    norm_k, norm_valid = propagate_normals(norm_k, norm_valid, cp, dps, nres.k, solved_ok)
-    kfs = kfs._replace(norm_k=norm_k, norm_valid=norm_valid)
+    with profiling.stage("keyframe.normals"):
+        obs, obs_dropped = accumulate_obs_device(
+            cp.pid_table, dps.mask, cp.uv1, dps.warped, dps.J12, dps.Huu, dps.Hvv, p_cap,
+            OBS_CAP)
+        nres = solve_normals_compact(
+            obs, points.norm_k0, min(feats.capacity, p_cap),
+            num_iters=c.mapping.normal_lm_iterations,
+        )
+        # covariance gate (NormalEstimator.cc:159); gated normals also stay
+        # out of the Sim(3) registration through norm_valid
+        solved_ok = normal_reliability_gate(nres, c.regularizer.reliability)
+        points = points._replace(
+            norm_k0=torch.where(solved_ok[:, None], nres.k, points.norm_k0))
+        pid_row = take(kfs.point_id, slot)
+        norm_k, norm_valid, _ = write_normals(
+            kfs.norm_k, kfs.norm_valid, slot, pid_row, nres.k, solved_ok)
+        norm_k, norm_valid = propagate_normals(norm_k, norm_valid, cp, dps, nres.k, solved_ok)
+        kfs = kfs._replace(norm_k=norm_k, norm_valid=norm_valid)
 
-    # template decision (needNewTemplate 355-404, selectKeyframe 411-441,
-    # enoughNormals Surface.cc:62-67)
-    n_new = exploration_count(take(kfs.xy, slot), kp_valid_s, pid_row, c)
-    sel = select_ref_keyframe(pid_row, points.ref_kf, points.valid, kfs.valid, slot)
-    exploring = n_new > c.mapping.points_to_template
-    kf_t = torch.where(exploring, slot, sel)
-    n_norm_t = kfs.norm_valid.sum(dim=1).gather(0, kf_t.reshape(1))[0]
-    gate = (cp.n_pairs > 0) & (n_norm_t >= c.mapping.min_normals)
+        # template decision (needNewTemplate 355-404, selectKeyframe 411-441,
+        # enoughNormals Surface.cc:62-67)
+        n_new = exploration_count(take(kfs.xy, slot), kp_valid_s, pid_row, c)
+        sel = select_ref_keyframe(pid_row, points.ref_kf, points.valid, kfs.valid, slot)
+        exploring = n_new > c.mapping.points_to_template
+        kf_t = torch.where(exploring, slot, sel)
+        n_norm_t = kfs.norm_valid.sum(dim=1).gather(0, kf_t.reshape(1))[0]
+        gate = (cp.n_pairs > 0) & (n_norm_t >= c.mapping.min_normals)
     mark("normals")
     carry = KFCarry(
         slot=slot, kf_t=kf_t, gate=gate, exploring=exploring, n_new=n_new,
@@ -780,43 +786,46 @@ def _kf_step_b(kfs, points, tmpl, pose, feats: Features, carry: KFCarry, K, dom,
     accepted = torch.zeros((), dtype=torch.bool, device=dev)
     reg_s = torch.ones((), device=dev)
     gauge = torch.eye(4, device=dev)
-    if bool(carry.gate) if gate is None else gate:  # host read: the chain runs
-        retina_t = take(kfs.retina, kf_t)
-        kp_valid_t = take(kfs.kp_valid, kf_t)
-        norm_valid_t = take(kfs.norm_valid, kf_t)
-        pose_t = take(kfs.pose, kf_t)
-        pid_t = take(kfs.point_id, kf_t)
-        # per-KF SfN domain: the depth spline lives on the reference
-        # keyframe's keypoint bbox; the extension prior, the polish anchors
-        # and the template grid stay on the camera-wide domain
-        if c.mapping.per_kf_domain:
-            dom_s = bbox_domain(retina_t, kp_valid_t, dom, margin=c.mapping.kf_domain_margin)
-            bend_s = bspline.bending_matrix_dyn(dom_s, c.mapping.sfn_ctrl_u, c.mapping.sfn_ctrl_v)
-        else:
-            dom_s, bend_s = dom, bend_sfn
-        res_sfn = integrate_surface(retina_t, take(kfs.norm_k, kf_t), norm_valid_t,
-                                    dom_s, bend_s, c, ext_dom=dom)
-        surf_xyz, map_xyz, mask, embedded = registration_pairs(
-            res_sfn.xyz, pid_t, take(kfs.kp_xyz, kf_t), take(kfs.kp_xyz_valid, kf_t),
-            norm_valid_t, points.valid, points.facet, pose_t,
-        )
-        reg = register_surface(surf_xyz, map_xyz, mask, c)
-        accepted = res_sfn.ok & reg.accepted
+    if _host_bool(carry.gate) if gate is None else gate:  # the chain runs
+        with profiling.stage("keyframe.sfn_registration"):
+            retina_t = take(kfs.retina, kf_t)
+            kp_valid_t = take(kfs.kp_valid, kf_t)
+            norm_valid_t = take(kfs.norm_valid, kf_t)
+            pose_t = take(kfs.pose, kf_t)
+            pid_t = take(kfs.point_id, kf_t)
+            # per-KF SfN domain: the depth spline lives on the reference
+            # keyframe's keypoint bbox; the extension prior, the polish
+            # anchors and the template grid stay on the camera-wide domain
+            if c.mapping.per_kf_domain:
+                dom_s = bbox_domain(retina_t, kp_valid_t, dom, margin=c.mapping.kf_domain_margin)
+                bend_s = bspline.bending_matrix_dyn(dom_s, c.mapping.sfn_ctrl_u,
+                                                    c.mapping.sfn_ctrl_v)
+            else:
+                dom_s, bend_s = dom, bend_sfn
+            res_sfn = integrate_surface(retina_t, take(kfs.norm_k, kf_t), norm_valid_t,
+                                        dom_s, bend_s, c, ext_dom=dom)
+            surf_xyz, map_xyz, mask, embedded = registration_pairs(
+                res_sfn.xyz, pid_t, take(kfs.kp_xyz, kf_t), take(kfs.kp_xyz_valid, kf_t),
+                norm_valid_t, points.valid, points.facet, pose_t,
+            )
+            reg = register_surface(surf_xyz, map_xyz, mask, c)
+            accepted = res_sfn.ok & reg.accepted
         mark("sfn_registration")
-        if bool(accepted):  # host read: the expensive branch runs only then
-            ctrl_p = polish_surface(res_sfn.ctrl, reg, retina_t, map_xyz, embedded, dom_s,
-                                    bend_s, c, grid_dom=dom)
-            regen = regen_template(ctrl_p, reg, pose_t, retina_t, dom, c, spline_dom=dom_s)
-            points, pid_row_new = rebuild_points(
-                points, regen, pose_t, K, pid_t, kp_valid_t, take(kfs.desc, kf_t),
-                take(kfs.angle, kf_t), kf_t, dom, c, kf_counter,
-            )
-            kfs = kfs._replace(
-                point_id=put_(kfs.point_id.clone(), kf_t, pid_row_new),
-                surf_ctrl=put_(kfs.surf_ctrl.clone(), kf_t, ctrl_p),
-                surf_valid=put_(kfs.surf_valid.clone(), kf_t, True),
-                surf_dom=put_(kfs.surf_dom.clone(), kf_t, dom_s),
-            )
+        if _host_bool(accepted):  # the expensive branch runs only then
+            with profiling.stage("keyframe.retemplate"):
+                ctrl_p = polish_surface(res_sfn.ctrl, reg, retina_t, map_xyz, embedded, dom_s,
+                                        bend_s, c, grid_dom=dom)
+                regen = regen_template(ctrl_p, reg, pose_t, retina_t, dom, c, spline_dom=dom_s)
+                points, pid_row_new = rebuild_points(
+                    points, regen, pose_t, K, pid_t, kp_valid_t, take(kfs.desc, kf_t),
+                    take(kfs.angle, kf_t), kf_t, dom, c, kf_counter,
+                )
+                kfs = kfs._replace(
+                    point_id=put_(kfs.point_id.clone(), kf_t, pid_row_new),
+                    surf_ctrl=put_(kfs.surf_ctrl.clone(), kf_t, ctrl_p),
+                    surf_valid=put_(kfs.surf_valid.clone(), kf_t, True),
+                    surf_dom=put_(kfs.surf_dom.clone(), kf_t, dom_s),
+                )
             mark("retemplate")
             # re-anchor camera and new mesh against the keyframe's features
             # with the temporal term off (DefTracking.cc:115-117).  Fused,
@@ -827,29 +836,37 @@ def _kf_step_b(kfs, points, tmpl, pose, feats: Features, carry: KFCarry, K, dom,
             # swap's change of gauge, pose_kf^-1 @ re-anchored pose, is
             # applied to the live pose (and by the caller to its motion
             # model) instead of rewinding to the keyframe's viewpoint.
-            pose_kf = take(kfs.pose, carry.slot) if split else pose
-            m2 = tracker.match_points_to_frame(points, pose_kf, K, feats, c)
-            res2 = tracker.sft_track(points, m2, feats, regen.template, pose_kf, K, c,
-                                     reg_temp=0.0)
-            tmpl = regen.template._replace(nodes=res2.nodes)
-            points = tracker.reposition_points(points, res2.nodes, c)
-            if split:
-                gauge = se3.inverse(pose_kf) @ res2.T
-                pose = pose @ gauge
-            else:
-                pose = res2.T
-            reg_s = reg.s.float()
+            with profiling.stage("keyframe.reanchor"):
+                pose_kf = take(kfs.pose, carry.slot) if split else pose
+                m2 = tracker.match_points_to_frame(points, pose_kf, K, feats, c)
+                res2 = tracker.sft_track(points, m2, feats, regen.template, pose_kf, K, c,
+                                         reg_temp=0.0)
+                tmpl = regen.template._replace(nodes=res2.nodes)
+                points = tracker.reposition_points(points, res2.nodes, c)
+                if split:
+                    gauge = se3.inverse(pose_kf) @ res2.T
+                    pose = pose @ gauge
+                else:
+                    pose = res2.T
+                reg_s = reg.s.float()
             mark("reanchor")
 
-    points, n_culled = cull_points(points, kfs.point_id, kfs.valid, kf_counter)
-    diag = MappingDiag(
-        slot=carry.slot, kf_t=kf_t, accepted=accepted, exploring=carry.exploring,
-        n_pairs=carry.n_pairs, n_new=carry.n_new, n_norm=carry.n_norm, n_culled=n_culled,
-        obs_dropped=carry.obs_dropped, pair_dropped=carry.pair_dropped,
-        pt_dropped=carry.pt_dropped, reg_scale=reg_s,
-    )
+    with profiling.stage("keyframe.cull"):
+        points, n_culled = cull_points(points, kfs.point_id, kfs.valid, kf_counter)
+        diag = MappingDiag(
+            slot=carry.slot, kf_t=kf_t, accepted=accepted, exploring=carry.exploring,
+            n_pairs=carry.n_pairs, n_new=carry.n_new, n_norm=carry.n_norm, n_culled=n_culled,
+            obs_dropped=carry.obs_dropped, pair_dropped=carry.pair_dropped,
+            pt_dropped=carry.pt_dropped, reg_scale=reg_s,
+        )
     mark("cull")
     return kfs, points, tmpl, pose, diag, gauge
+
+
+def _host_bool(flag: torch.Tensor) -> bool:
+    """A 0-dim device flag read on the host: it waits for the stream."""
+    with profiling.stage("host.wait"):
+        return bool(flag)
 
 
 def keyframe_step(kfs: KeyframeStore, points: PointStore, tmpl: meshmod.Template,

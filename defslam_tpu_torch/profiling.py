@@ -1,38 +1,73 @@
-"""Lightweight stage timers and device traces (the reference has none:
-only ad-hoc ``cv::getTickCount`` prints, GroundTruthFrame.cc:196-214).
+"""The port's tracer: spans at the program's layer boundaries (the reference
+has none: only ad-hoc ``cv::getTickCount`` prints,
+GroundTruthFrame.cc:196-214), and two counters for the card.
 
-Port of ``defslam_tpu/profiling.py``:
+Port of ``defslam_tpu/profiling.py``, grown into spans:
 
-- ``stage(name, sync=None)``: a context manager that adds the stage's wall
-  time to a per-stage list; with ``sync`` (a tensor or a tuple of them) it
-  first waits for that work on the device, through a CUDA event recorded
-  on each CUDA device the tensors live on (nothing to wait for on the CPU);
-- ``report()`` / ``print_report()``: per-stage count, total, mean, max;
-- ``device_trace(dir)``: a ``torch.profiler`` trace of a region, written
-  for TensorBoard;
+- ``stage(name, sync=None, frame=None)``: a span around a region.  It
+  records its start and end in ``time.time_ns()`` nanoseconds, which is
+  the clock of a ``torch.profiler`` trace's events, so spans lie on the
+  device trace's timeline; the span open when it began (its parent); and
+  the id of the frame it serves (``frame``, else its parent's).  With
+  ``sync`` (a tensor or a tuple of them) it first waits for that work on
+  the device, through a CUDA event recorded on each CUDA device the
+  tensors live on (nothing to wait for on the CPU), before it ends.
+- A span records in two cases.  While ``enable()`` / ``DEFSLAM_PROFILE=1``
+  is on, into the per-name aggregates of ``report()`` / ``print_report()``
+  (count, total, mean, max and mean self time: the span's time less its
+  children's).  While a ``torch.profiler`` session runs, of any activity
+  set, into the timeline that ``timeline()`` returns (``report(reset=True)``
+  leaves it), and as a ``record_function`` range of its name, which a
+  session with CPU activity shows in its trace.  Off, a span costs one
+  branch: no clock read, no allocation, no CUDA event, no sync.
 - ``host_waits()``: the operations in a region that make the host wait
   for the card (``torch.cuda.set_sync_debug_mode``), counted by source
   line;
 - ``kernel_launches(system)``: this process's kernel launches by name, for
   ``parallel.driver.Driver.gather`` to read on every rank.
 
-Enabled by ``DEFSLAM_PROFILE=1``; off by default, when the timers cost
-one branch (the hot path does not pay for observability).
+Spans sit at layer boundaries, never inside a solver's iterations: a
+tracked frame records ``frame.dispatch`` (with ``frontend.extract``,
+``tracking.match``, ``tracking.sft``), ``frame.finalize``, ``host.wait``
+and, on a keyframe, ``keyframe.dispatch`` (or ``_a`` and ``_b``) with its
+stages; the rigid mode ``rigid.frame`` with ``rigid.match``,
+``rigid.pose``, ``rigid.keyframe`` and ``rigid.local_ba``.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import itertools
 import os
+import threading
 import time
 import warnings
-from collections import defaultdict
+from typing import NamedTuple
 
 import torch
+import torch.autograd.profiler as _torch_profiler
 
 _ENABLED = os.environ.get("DEFSLAM_PROFILE", "0") not in ("0", "", "false")
-_STAGES: dict[str, list[float]] = defaultdict(list)
+# per name: [count, total ns, max ns, self ns]
+_AGG: dict[str, list[int]] = {}
+# the spans recorded under a profiler session, newest last; bounded, so a
+# long session keeps its latest spans
+_TIMELINE: collections.deque = collections.deque(maxlen=200_000)
+_IDS = itertools.count(1)
+_LOCAL = threading.local()  # .open: this thread's open spans, innermost last
+
+
+class Span(NamedTuple):
+    """A finished span: times in ``time.time_ns()`` nanoseconds, the ids of
+    the span and of its parent (None at the top), the frame it serves."""
+
+    name: str
+    t0_ns: int
+    t1_ns: int
+    id: int
+    parent: int | None
+    frame: int | None
 
 
 def enabled() -> bool:
@@ -62,33 +97,101 @@ def _wait_for(obj) -> None:
         ev.synchronize()
 
 
-@contextlib.contextmanager
-def stage(name: str, sync=None):
-    """Time a stage; pass a tensor (or a tuple of them) as ``sync`` to wait
-    for it on the device before the clock stops."""
-    if not _ENABLED:
-        yield
-        return
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        if sync is not None:
-            _wait_for(sync)
-        _STAGES[name].append(time.perf_counter() - t0)
+class _Open:
+    """A span being recorded (the context manager ``stage`` returns when
+    the tracer is on)."""
+
+    __slots__ = ("name", "sync", "frame", "id", "parent", "child_ns", "t0_ns",
+                 "to_report", "to_timeline", "range")
+
+    def __init__(self, name: str, sync, frame):
+        self.name, self.sync, self.frame = name, sync, frame
+
+    def __enter__(self):
+        stack = getattr(_LOCAL, "open", None)
+        if stack is None:
+            stack = _LOCAL.open = []
+        parent = stack[-1] if stack else None
+        self.parent = parent.id if parent is not None else None
+        if self.frame is None and parent is not None:
+            self.frame = parent.frame
+        self.id = next(_IDS)
+        self.child_ns = 0
+        self.to_report = _ENABLED
+        self.to_timeline = _torch_profiler._is_profiler_enabled
+        stack.append(self)
+        self.t0_ns = time.time_ns()
+        self.range = None
+        if self.to_timeline:
+            self.range = _torch_profiler.record_function(self.name)
+            self.range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            if self.sync is not None:
+                _wait_for(self.sync)
+        finally:
+            if self.range is not None:
+                self.range.__exit__(None, None, None)
+            t1 = time.time_ns()
+            self.sync = None
+            stack = _LOCAL.open
+            stack.pop()
+            dur = t1 - self.t0_ns
+            if stack:
+                stack[-1].child_ns += dur
+            if self.to_report:
+                agg = _AGG.get(self.name)
+                if agg is None:
+                    agg = _AGG[self.name] = [0, 0, 0, 0]
+                agg[0] += 1
+                agg[1] += dur
+                agg[2] = max(agg[2], dur)
+                agg[3] += dur - self.child_ns
+            if self.to_timeline:
+                _TIMELINE.append(Span(self.name, self.t0_ns, t1, self.id, self.parent,
+                                      self.frame))
+        return False
+
+
+_OFF = contextlib.nullcontext()
+
+
+def stage(name: str, sync=None, frame: int | None = None):
+    """A span named ``name`` around the ``with`` block; pass a tensor (or a
+    tuple of them) as ``sync`` to wait for it on the device before the span
+    ends, and ``frame`` for the id of the frame it serves (else its
+    parent's)."""
+    if not (_ENABLED or _torch_profiler._is_profiler_enabled):
+        return _OFF
+    return _Open(name, sync, frame)
 
 
 def report(reset: bool = False) -> dict[str, dict]:
+    """Per span name, over the spans recorded while ``enable()`` was on:
+    ``count``, ``total_s``, ``mean_ms``, ``max_ms`` and ``self_ms`` (the
+    mean of each span's time less the time of the spans inside it)."""
     out = {}
-    for name, times in sorted(_STAGES.items()):
+    for name, (count, total, peak, own) in sorted(_AGG.items()):
         out[name] = dict(
-            count=len(times),
-            total_s=sum(times),
-            mean_ms=1000.0 * sum(times) / max(len(times), 1),
-            max_ms=1000.0 * max(times),
+            count=count,
+            total_s=total * 1e-9,
+            mean_ms=1e-6 * total / max(count, 1),
+            max_ms=1e-6 * peak,
+            self_ms=1e-6 * own / max(count, 1),
         )
     if reset:
-        _STAGES.clear()
+        _AGG.clear()
+    return out
+
+
+def timeline(reset: bool = False) -> list[Span]:
+    """The spans recorded while a ``torch.profiler`` session ran, in the
+    order they ended; ``reset`` empties it after the read."""
+    out = list(_TIMELINE)
+    if reset:
+        _TIMELINE.clear()
     return out
 
 
@@ -97,24 +200,10 @@ def print_report(reset: bool = False):
     if not rows:
         return
     width = max(len(n) for n in rows)
-    print(f"{'stage':<{width}}  count   mean ms    max ms   total s")
+    print(f"{'stage':<{width}}  count   mean ms    self ms    max ms   total s")
     for name, r in rows.items():
-        print(f"{name:<{width}}  {r['count']:5d}  {r['mean_ms']:8.1f}"
+        print(f"{name:<{width}}  {r['count']:5d}  {r['mean_ms']:8.1f}  {r['self_ms']:9.1f}"
               f"  {r['max_ms']:8.1f}  {r['total_s']:8.2f}")
-
-
-@contextlib.contextmanager
-def device_trace(logdir: str):
-    """A ``torch.profiler`` trace of the region (host ops, and the device's
-    kernels where CUDA is present), written under ``logdir`` for
-    TensorBoard.  Yields the profiler."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(
-        activities=acts, on_trace_ready=torch.profiler.tensorboard_trace_handler(logdir)
-    ) as prof:
-        yield prof
 
 
 @contextlib.contextmanager

@@ -42,6 +42,7 @@ import enum
 import numpy as np
 import torch
 
+from defslam_tpu_torch import profiling
 from defslam_tpu_torch.config import Config
 from defslam_tpu_torch.frontend import Features, extract_features
 from defslam_tpu_torch.geometry import camera as cam
@@ -73,17 +74,18 @@ def match_points_rigid(points, pose, K, feats: Features, cfg: Config, window: fl
     (ORBmatcher::SearchByProjection(Frame, ...), ORBmatcher.cc:42-166; no
     template gate).  B1 at (P, K).  Returns (kp_of_point (P,), n_matches
     (), visible (P,))."""
-    pc = se3.transform(pose, points.xyz)
-    uv = cam.project(K, pc)
-    ok_p = points.valid & (pc[..., 2] > 1e-6) & cam.in_image(uv, cfg.camera.width, cfg.camera.height)
-    lv = feats.level.to(torch.float32)
-    scale = torch.pow(torch.full_like(lv, cfg.orb.scale_factor), lv)
-    inside = torch.abs(uv[:, None, :] - feats.xy[None, :, :]).max(dim=-1).values <= window * scale[None, :]
-    dist = matching.masked_hamming(points.desc, feats.desc, ok_p, feats.valid, pair_mask=inside)
-    m = matching.best_match(dist, max_dist=cfg.tracking.match_th_high,
-                            nn_ratio=cfg.tracking.nn_ratio, mutual=True)
-    m = matching.rotation_consistency(points.angle, feats.angle, m)
-    return m.idx, (m.idx >= 0).sum(), ok_p
+    with profiling.stage("rigid.match"):
+        pc = se3.transform(pose, points.xyz)
+        uv = cam.project(K, pc)
+        ok_p = points.valid & (pc[..., 2] > 1e-6) & cam.in_image(uv, cfg.camera.width, cfg.camera.height)
+        lv = feats.level.to(torch.float32)
+        scale = torch.pow(torch.full_like(lv, cfg.orb.scale_factor), lv)
+        inside = torch.abs(uv[:, None, :] - feats.xy[None, :, :]).max(dim=-1).values <= window * scale[None, :]
+        dist = matching.masked_hamming(points.desc, feats.desc, ok_p, feats.valid, pair_mask=inside)
+        m = matching.best_match(dist, max_dist=cfg.tracking.match_th_high,
+                                nn_ratio=cfg.tracking.nn_ratio, mutual=True)
+        m = matching.rotation_consistency(points.angle, feats.angle, m)
+        return m.idx, (m.idx >= 0).sum(), ok_p
 
 
 def match_for_init(f1: Features, f2: Features, cfg: Config, radius: float = 100.0):
@@ -136,21 +138,22 @@ class RigidSystem:
         """Process one grey frame (numpy or tensor); returns the world ->
         camera pose (4x4 numpy) or None while not initialized or lost."""
         self.frame_id += 1
-        if not torch.is_tensor(img):
-            img = torch.from_numpy(np.ascontiguousarray(img))
-        img = img.to(self.device)
-        if img.ndim == 3:
-            img = img.float().mean(dim=-1)
-        feats = extract_features(img, self.cfg)
-        if self.state in (RigidState.NO_IMAGES_YET, RigidState.NOT_INITIALIZED):
-            ok = self._try_initialize(feats)
-            self.state = RigidState.OK if ok else RigidState.NOT_INITIALIZED
-            if ok:
-                pose = self.pose.cpu().numpy()
-                self.trajectory.append((timestamp, pose))
-                return pose
-            return None
-        return self._track(feats, timestamp)
+        with profiling.stage("rigid.frame", frame=self.frame_id):
+            if not torch.is_tensor(img):
+                img = torch.from_numpy(np.ascontiguousarray(img))
+            img = img.to(self.device)
+            if img.ndim == 3:
+                img = img.float().mean(dim=-1)
+            feats = extract_features(img, self.cfg)
+            if self.state in (RigidState.NO_IMAGES_YET, RigidState.NOT_INITIALIZED):
+                ok = self._try_initialize(feats)
+                self.state = RigidState.OK if ok else RigidState.NOT_INITIALIZED
+                if ok:
+                    pose = self.pose.cpu().numpy()
+                    self.trajectory.append((timestamp, pose))
+                    return pose
+                return None
+            return self._track(feats, timestamp)
 
     def _try_initialize(self, feats: Features) -> bool:
         c = self.cfg
@@ -263,11 +266,12 @@ class RigidSystem:
 
     def _pose_solve(self, T0, idx, feats: Features):
         c = self.cfg
-        kp = torch.clamp(idx, 0, feats.capacity - 1)
-        lv = feats.level[kp].to(torch.float32)
-        inv_sigma2 = 1.0 / torch.pow(torch.full_like(lv, c.orb.scale_factor), 2.0 * lv)
-        mask = (idx >= 0) & self.points.valid
-        return pose_opt.solve_pose(self.K, T0, self.points.xyz, feats.xy[kp], inv_sigma2, mask, c)
+        with profiling.stage("rigid.pose"):
+            kp = torch.clamp(idx, 0, feats.capacity - 1)
+            lv = feats.level[kp].to(torch.float32)
+            inv_sigma2 = 1.0 / torch.pow(torch.full_like(lv, c.orb.scale_factor), 2.0 * lv)
+            mask = (idx >= 0) & self.points.valid
+            return pose_opt.solve_pose(self.K, T0, self.points.xyz, feats.xy[kp], inv_sigma2, mask, c)
 
     # ------------------------------------------------------------- mapping
 
@@ -297,31 +301,32 @@ class RigidSystem:
 
     def _insert_keyframe(self, feats: Features, idx, inlier):
         c = self.cfg
-        slot = self._free_kf_slot()
-        self.kfs, n_obs = store.insert_keyframe_from_matches(
-            self.kfs, self.points.n_obs, slot, self.pose, feats, idx, inlier, self.K,
-            self.frame_id, self.points.xyz,
-        )
-        self.points = self.points._replace(n_obs=n_obs)
-        self._n_kf_inserted += 1
+        with profiling.stage("rigid.keyframe"):
+            slot = self._free_kf_slot()
+            self.kfs, n_obs = store.insert_keyframe_from_matches(
+                self.kfs, self.points.n_obs, slot, self.pose, feats, idx, inlier, self.K,
+                self.frame_id, self.points.xyz,
+            )
+            self.points = self.points._replace(n_obs=n_obs)
+            self._n_kf_inserted += 1
 
-        neighbors = self._covis_order(slot)[:3]
-        for nb in neighbors:
-            self._triangulate_pair(slot, nb)
-        for nb in neighbors[:2]:
-            self._fuse_pair(slot, nb)
-        self._cull_points()
-        self._local_ba()
-        self._cull_keyframe(slot)
-        closed, kfs2, pts2, cand = loop_closing.close_loop(self.kfs, self.points, slot, self.K, c)
-        if closed:
-            # CorrectLoop's completion (LoopClosing.cc:496-741): fuse the
-            # loop-side duplicates under the corrected poses, global BA
-            self.kfs, self.points, _ = loop_closing.fuse_and_global_ba(
-                kfs2, pts2, slot, cand, self.K, self.sig2, c)
-            self.pose = self.kfs.pose[slot].clone()
-            self.velocity = torch.eye(4, device=self.device)
-            self.loops_closed += 1
+            neighbors = self._covis_order(slot)[:3]
+            for nb in neighbors:
+                self._triangulate_pair(slot, nb)
+            for nb in neighbors[:2]:
+                self._fuse_pair(slot, nb)
+            self._cull_points()
+            self._local_ba()
+            self._cull_keyframe(slot)
+            closed, kfs2, pts2, cand = loop_closing.close_loop(self.kfs, self.points, slot, self.K, c)
+            if closed:
+                # CorrectLoop's completion (LoopClosing.cc:496-741): fuse the
+                # loop-side duplicates under the corrected poses, global BA
+                self.kfs, self.points, _ = loop_closing.fuse_and_global_ba(
+                    kfs2, pts2, slot, cand, self.K, self.sig2, c)
+                self.pose = self.kfs.pose[slot].clone()
+                self.velocity = torch.eye(4, device=self.device)
+                self.loops_closed += 1
 
     def _triangulate_pair(self, s1: int, s2: int):
         """CreateNewMapPoints for one keyframe pair."""
@@ -412,19 +417,20 @@ class RigidSystem:
         capacity the local window is the whole map; 5 iterations, chi2
         gate, 10 more, prune), keyframe 0 fixing the gauge."""
         kfs = self.kfs
-        lv = torch.clamp(kfs.level, 0, self.sig2.shape[0] - 1)
-        problem = ba.BAProblem(
-            poses=kfs.pose, xyz=self.points.xyz, pid=kfs.point_id, uv=kfs.xy,
-            inv_sigma2=1.0 / self.sig2[lv], obs_mask=kfs.kp_valid & kfs.valid[:, None],
-            cam_free=kfs.valid & (torch.arange(kfs.capacity, device=self.device) != 0),
-            point_free=self.points.valid,
-        )
-        res = ba.ba_solve(problem, self.K)
-        # erase the observations that failed the chi2 gate (Optimizer.cc:720-760)
-        pid = torch.where((kfs.point_id >= 0) & ~res.inlier, torch.full_like(kfs.point_id, -1),
-                          kfs.point_id)
-        self.kfs = kfs._replace(pose=res.poses, point_id=pid)
-        self.points = self.points._replace(xyz=res.xyz)
+        with profiling.stage("rigid.local_ba"):
+            lv = torch.clamp(kfs.level, 0, self.sig2.shape[0] - 1)
+            problem = ba.BAProblem(
+                poses=kfs.pose, xyz=self.points.xyz, pid=kfs.point_id, uv=kfs.xy,
+                inv_sigma2=1.0 / self.sig2[lv], obs_mask=kfs.kp_valid & kfs.valid[:, None],
+                cam_free=kfs.valid & (torch.arange(kfs.capacity, device=self.device) != 0),
+                point_free=self.points.valid,
+            )
+            res = ba.ba_solve(problem, self.K)
+            # erase the observations that failed the chi2 gate (Optimizer.cc:720-760)
+            pid = torch.where((kfs.point_id >= 0) & ~res.inlier, torch.full_like(kfs.point_id, -1),
+                              kfs.point_id)
+            self.kfs = kfs._replace(pose=res.poses, point_id=pid)
+            self.points = self.points._replace(xyz=res.xyz)
 
     # ------------------------------------------------------------- outputs
 

@@ -121,6 +121,7 @@ class _InFlight(NamedTuple):
     row: int  # its metrics row
     kf_backup: tuple | None  # (kfs, kf_counter, template_ref_kf, len(template_history))
     readback: Readback  # (stats, pose) on their way to the host
+    frame: int  # its frame id
 
 
 def resolve_device(device=None, cfg: Config | None = None) -> torch.device:
@@ -439,10 +440,12 @@ class System:
                    and self.frames_since_kf + 1 >= c.tracking.keyframe_period)
         pipelined = (c.tracking.pipelined and self.state == TrackingState.OK
                      and not (will_kf and self.group is not None))
-        with profiling.stage("frame.dispatch"):
+        with profiling.stage("frame.dispatch", frame=self.frame_id):
             out = self._track_frame(img)
         target = max(1, c.tracking.pipeline_depth) - 1 if pipelined else 0
-        with profiling.stage("frame.finalize"):
+        # the span serves the frame it validates: the oldest in flight
+        oldest = self._pending[0].frame if self._pending else self.frame_id
+        with profiling.stage("frame.finalize", frame=oldest):
             while len(self._pending) > target:
                 if not self._finalize_pending():
                     # an in-flight frame failed: the state was rolled back and
@@ -487,7 +490,7 @@ class System:
             # this frame's rollback snapshot of the keyframe store
             kf_backup = self._dispatch_pending_kf_b()
         self._pending.append(_InFlight(img, out, timestamp, backup, len(self._metrics) - 1,
-                                       kf_backup, readback))
+                                       kf_backup, readback, self.frame_id))
         return FrameResult(res.T, TrackingState.OK, -1, -1, False, False)
 
     def _finalize_pending(self) -> bool:
@@ -646,7 +649,7 @@ class System:
         # DefLocalMapping.cc:216-221), on the state right after the step
         gt_angles = c.save_results and self._gt_eval is not None
         if c.tracking.split_keyframe_dispatch and not gt_angles:
-            with profiling.stage("keyframe.dispatch_a"):
+            with profiling.stage("keyframe.dispatch_a", frame=self.frame_id):
                 self.kfs, self.points, carry = mapper.keyframe_step_a(
                     self.kfs, self.points, self.pose, feats, matches.kp_of_point, res.inlier,
                     self.K, self.dom, self.bend_warp, self.template_ref_kf, self.frame_id, c,
@@ -659,7 +662,7 @@ class System:
                                   self.kf_counter)
             self.kf_counter += 1
             return False
-        with profiling.stage("keyframe.dispatch"):
+        with profiling.stage("keyframe.dispatch", frame=self.frame_id):
             self.kfs, self.points, self.template, self.pose, diag = mapper.keyframe_step(
                 self.kfs, self.points, self.template, self.pose, feats,
                 matches.kp_of_point, res.inlier, self.K, self.dom,
@@ -687,7 +690,7 @@ class System:
         carry, gate, feats, row, kf_counter = self._pending_kf_b
         self._pending_kf_b = None
         b_backup = (self.kfs, self.kf_counter, self.template_ref_kf, len(self.template_history))
-        with profiling.stage("keyframe.dispatch_b"):
+        with profiling.stage("keyframe.dispatch_b", frame=row["frame"]):
             self.kfs, self.points, self.template, self.pose, diag, gauge = mapper.keyframe_step_b(
                 self.kfs, self.points, self.template, self.pose, feats, carry, self.K,
                 self.dom, self.bend_sfn, kf_counter, self.cfg, mark=self._kf_mark,

@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from defslam_tpu_torch import profiling
 from defslam_tpu_torch.config import Config
 from defslam_tpu_torch.frontend import Features, extract_features
 from defslam_tpu_torch.geometry import camera as cam
@@ -46,43 +47,44 @@ def match_points_to_frame(
     level.  Only valid, template-embedded, in-frustum points are
     candidates; they are compacted into ``tracking.match_capacity`` slots
     first (overflow counted in ``n_dropped``)."""
-    w = cfg.tracking.projection_window if window is None else window
-    pc = se3.transform(pose, points.xyz)
-    uv = cam.project(K, pc)
-    in_front = pc[..., 2] > 1e-6
-    in_img = cam.in_image(uv, cfg.camera.width, cfg.camera.height)
-    ok_p = points.valid & (points.facet >= 0) & in_front & in_img
+    with profiling.stage("tracking.match"):
+        w = cfg.tracking.projection_window if window is None else window
+        pc = se3.transform(pose, points.xyz)
+        uv = cam.project(K, pc)
+        in_front = pc[..., 2] > 1e-6
+        in_img = cam.in_image(uv, cfg.camera.width, cfg.camera.height)
+        ok_p = points.valid & (points.facet >= 0) & in_front & in_img
 
-    p_cap = points.capacity
-    n_c = min(cfg.tracking.match_capacity, p_cap)
-    sel, ok_c, n_dropped = matching.compact_select(ok_p, n_c)
-    uv_c = uv[sel]
+        p_cap = points.capacity
+        n_c = min(cfg.tracking.match_capacity, p_cap)
+        sel, ok_c, n_dropped = matching.compact_select(ok_p, n_c)
+        uv_c = uv[sel]
 
-    scale = torch.pow(
-        torch.full_like(feats.xy[:, 0], cfg.orb.scale_factor), feats.level.float()
-    )
-    d = torch.abs(uv_c[:, None, :] - feats.xy[None, :, :])
-    inside = d.max(dim=-1).values <= w * scale[None, :]
-    dist = matching.masked_hamming(
-        points.desc[sel], feats.desc, ok_c, feats.valid, pair_mask=inside
-    )
-    m = matching.best_match(
-        dist, max_dist=cfg.tracking.match_th_high, nn_ratio=cfg.tracking.nn_ratio,
-        mutual=True,
-    )
-    m = matching.rotation_consistency(points.angle[sel], feats.angle, m)
-    idx_ok = torch.where(ok_c, m.idx, torch.full_like(m.idx, -1))
-    kp_full = torch.full((p_cap,), -1, dtype=torch.int64, device=pose.device)
-    kp_full[sel] = idx_ok
-    dist_full = torch.full((p_cap,), matching.INVALID, dtype=torch.int32, device=pose.device)
-    dist_full[sel] = m.dist
-    return FrameMatches(
-        kp_of_point=kp_full,
-        dist=dist_full,
-        n_matches=(idx_ok >= 0).sum(),
-        n_dropped=n_dropped,
-        visible=ok_p,
-    )
+        scale = torch.pow(
+            torch.full_like(feats.xy[:, 0], cfg.orb.scale_factor), feats.level.float()
+        )
+        d = torch.abs(uv_c[:, None, :] - feats.xy[None, :, :])
+        inside = d.max(dim=-1).values <= w * scale[None, :]
+        dist = matching.masked_hamming(
+            points.desc[sel], feats.desc, ok_c, feats.valid, pair_mask=inside
+        )
+        m = matching.best_match(
+            dist, max_dist=cfg.tracking.match_th_high, nn_ratio=cfg.tracking.nn_ratio,
+            mutual=True,
+        )
+        m = matching.rotation_consistency(points.angle[sel], feats.angle, m)
+        idx_ok = torch.where(ok_c, m.idx, torch.full_like(m.idx, -1))
+        kp_full = torch.full((p_cap,), -1, dtype=torch.int64, device=pose.device)
+        kp_full[sel] = idx_ok
+        dist_full = torch.full((p_cap,), matching.INVALID, dtype=torch.int32, device=pose.device)
+        dist_full[sel] = m.dist
+        return FrameMatches(
+            kp_of_point=kp_full,
+            dist=dist_full,
+            n_matches=(idx_ok >= 0).sum(),
+            n_dropped=n_dropped,
+            visible=ok_p,
+        )
 
 
 def _sft_data_from_matches(points: PointStore, matches: FrameMatches,
@@ -211,7 +213,8 @@ def _track_frame(solve, img, points, pose, prev_pose, tmpl, K, cfg: Config, wind
     matches = match_points_to_frame(
         points, pred, K, feats, cfg, window=window_scale * cfg.tracking.projection_window
     )
-    res = solve(points, matches, feats, tmpl, pred, K, cfg)
+    with profiling.stage("tracking.sft"):
+        res = solve(points, matches, feats, tmpl, pred, K, cfg)
     new_points = reposition_points(points, res.nodes, cfg)
     matched = matches.kp_of_point >= 0
     kp = torch.clamp(matches.kp_of_point, 0, feats.capacity - 1)

@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from defslam_tpu_torch import profiling
+
 
 def psd_solve(A: torch.Tensor, b: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
     """Solve A x = b for symmetric positive definite A by Cholesky.  A
@@ -196,6 +198,7 @@ class Readback:
 
     def get(self) -> tuple[np.ndarray, ...]:
         """Wait for the copies and return the host values as numpy arrays."""
-        if self._event is not None:
-            self._event.synchronize()
+        with profiling.stage("host.wait"):
+            if self._event is not None:
+                self._event.synchronize()
         return tuple(h.numpy() for h in self._host)
