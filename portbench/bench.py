@@ -22,7 +22,9 @@ A run (:func:`run_cell`):
    (the device's activities and the CUDA runtime's calls), runs at least
    as many more, and times the metrics' spans; the profiler's stop is
    left out of the traced span and added to the window's length;
-6. compares samples of the window's layer steps with the reference
+6. takes down the world of a System that spans several ranks
+   (``parallel.enabled``): its workers exit and free their cards;
+7. compares samples of the window's layer steps with the reference
    (``reference/``: in float32 where the comparison is exact, in float64
    for the solvers) and the whole trajectory with the render's ground
    truth, once the program's state is freed, each number against its
@@ -173,7 +175,14 @@ class Capture(Hooks):
     reference: a sample of the window's calls (drawn from the seed) with
     their inputs and outputs.  Only references are kept, except where
     the program writes a tensor in place afterwards (the keyframe store,
-    the rigid stores), which is cloned for the calls that are kept."""
+    the rigid stores), which is cloned for the calls that are kept.
+
+    A deformable System that spans a world of N ranks (``System.group``)
+    tracks a frame through ``tracker.track_frame_parallel`` (the sharded
+    SfT) and inserts a keyframe through ``System._insert_keyframe_legacy``
+    (the host-orchestrated chain): those are wrapped instead, in this
+    process, which is rank 0; the workers run the same frames in their
+    own processes and are not captured."""
 
     def __init__(self, prog, kind: str, mix: dict, seed: int):
         super().__init__()
@@ -190,6 +199,7 @@ class Capture(Hooks):
         self.init = None
         self.active = False  # sampling on: the measured window
         self.system = None
+        self.world = 1  # the ranks of the System's group
         self._waiting = None  # the kept frame whose successor's inputs are due
 
     def install(self, system) -> None:
@@ -201,8 +211,13 @@ class Capture(Hooks):
             self.wrap(p.RigidSystem, "_pose_solve", self._pose_solve)
             self.wrap(p.RigidSystem, "_local_ba", self._local_ba)
             return
-        self.wrap(p.tracker, "track_frame", self._frame)
-        self.wrap(p.mapper, "keyframe_step", self._keyframe)
+        if system.group is None:
+            self.wrap(p.tracker, "track_frame", self._frame)
+            self.wrap(p.mapper, "keyframe_step", self._keyframe)
+        else:
+            self.world = system.group.size
+            self.wrap(p.tracker, "track_frame_parallel", self._frame_parallel)
+            self.wrap(system, "_insert_keyframe_legacy", self._keyframe_legacy)
         self.wrap(system, "_initialize", self._initialize)
 
     # the deformable system
@@ -218,24 +233,38 @@ class Capture(Hooks):
 
     def _frame(self, orig):
         def call(img, points, pose, prev_pose, tmpl, K, cfg, window_scale: float = 1.0):
-            s = self.system
-            if self._waiting is not None:
-                self._waiting["next"] = {"points": points, "pose": pose, "prev_pose": prev_pose,
-                                         "tmpl": tmpl, "frame": s.frame_id,
-                                         "rollbacks": s.n_rollbacks}
-                self._waiting = None
-            out = orig(img, points, pose, prev_pose, tmpl, K, cfg, window_scale=window_scale)
-            j = self.frames.slot() if self.active else None
-            if j is not None:
-                item = {"img": img, "points": points, "pose": pose, "prev_pose": prev_pose,
-                        "tmpl": tmpl, "window_scale": window_scale, "out": out,
-                        "frame": s.frame_id, "rollbacks": s.n_rollbacks,
-                        "keyframe": s.frames_since_kf + 1 >= s.cfg.tracking.keyframe_period
-                        and not s._localization_only}
-                self.frames.items[j] = item
-                self._waiting = item
-            return out
+            return self._track(lambda: orig(img, points, pose, prev_pose, tmpl, K, cfg,
+                                            window_scale=window_scale),
+                               img, points, pose, prev_pose, tmpl, window_scale)
         return call
+
+    def _frame_parallel(self, orig):
+        def call(group, img, points, pose, prev_pose, tmpl, K, cfg, window_scale: float = 1.0):
+            return self._track(lambda: orig(group, img, points, pose, prev_pose, tmpl, K, cfg,
+                                            window_scale=window_scale),
+                               img, points, pose, prev_pose, tmpl, window_scale)
+        return call
+
+    def _track(self, run, img, points, pose, prev_pose, tmpl, window_scale):
+        """One frame tracked by ``run()``: the inputs handed on to the kept
+        frame before it (its ``next``), and this frame kept if sampled."""
+        s = self.system
+        if self._waiting is not None:
+            self._waiting["next"] = {"points": points, "pose": pose, "prev_pose": prev_pose,
+                                     "tmpl": tmpl, "frame": s.frame_id,
+                                     "rollbacks": s.n_rollbacks}
+            self._waiting = None
+        out = run()
+        j = self.frames.slot() if self.active else None
+        if j is not None:
+            item = {"img": img, "points": points, "pose": pose, "prev_pose": prev_pose,
+                    "tmpl": tmpl, "window_scale": window_scale, "out": out,
+                    "frame": s.frame_id, "rollbacks": s.n_rollbacks,
+                    "keyframe": s.frames_since_kf + 1 >= s.cfg.tracking.keyframe_period
+                    and not s._localization_only}
+            self.frames.items[j] = item
+            self._waiting = item
+        return out
 
     def _keyframe(self, orig):
         def call(kfs, points, tmpl, pose, feats, kp_of_point, inlier, K, dom, bend_warp,
@@ -251,6 +280,23 @@ class Capture(Hooks):
                     "tmpl_ref_kf": tmpl_ref_kf, "kf_counter": kf_counter,
                     "frame_id": frame_id, "out": (_clone(out[0]),) + tuple(out[1:])}
             return out
+        return call
+
+    def _keyframe_legacy(self, orig):
+        def call(feats, matches, res):
+            s = self.system
+            j = self.keyframes.slot() if self.active else None
+            if j is None:
+                return orig(feats, matches, res)
+            item = {"legacy": True, "kfs": _clone(s.kfs), "points": s.points, "tmpl": s.template,
+                    "pose": s.pose, "feats": feats, "kp_of_point": matches.kp_of_point,
+                    "inlier": res.inlier, "tmpl_ref_kf": s.template_ref_kf,
+                    "kf_counter": s.kf_counter, "frame_id": s.frame_id}
+            updated = orig(feats, matches, res)
+            item["out"] = (_clone(s.kfs), s.points, s.template, s.template_ref_kf, s.kf_counter,
+                           updated)
+            self.keyframes.items[j] = item
+            return updated
         return call
 
     # the rigid system
@@ -485,7 +531,11 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool, device=None,
 
     prog = Program()
     set_tf32(control == "tf32")
-    cfg = layers.build(prog.config.Config, values)
+    config_class = prog.config.Config
+    if control == "tf32" and values.get("parallel", {}).get("enabled"):
+        # the workers of a world allow TF32 too (tf32_world.py)
+        from portbench.tf32_world import TF32Config as config_class
+    cfg = layers.build(config_class, values)
     cam = render.camera(cfg.camera.width, cfg.camera.height)
     if any(abs(getattr(cfg.camera, k) - cam[k]) > 1e-6 for k in ("fx", "fy", "cx", "cy")):
         raise ValueError(f"{entry['config']}: the camera is not the render's {cam}")
@@ -613,6 +663,7 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool, device=None,
             for mod in metric_mods.values():
                 if hasattr(mod, "replay"):
                     rec.replays.update(mod.replay(ctx))
+            del ctx
             for m in metric_entries:
                 v = metric_mods[m["name"]].read(rec)
                 if v is not None:
@@ -628,8 +679,11 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool, device=None,
         if shapes is not None:
             shapes.restore()
         capture.restore()
+        capture.system = None
+        workers_left = close_world(system)
 
     # ---- the comparison, with the program's state freed
+    t_judge = time.perf_counter()
     gt_poses = stream.poses
     del system
     if cuda:
@@ -670,9 +724,37 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool, device=None,
     out["compared"] = numbers
     samples = {"window_frames": n_window, "frame_times": len(frame_s), "window_s": window_s,
                "setup_s": setup_s, "profiler_stop_s": stop_s,
+               "judge_s": time.perf_counter() - t_judge, "workers_left": workers_left,
                "checked": {k: v for k, v in compared.items() if k.endswith("_n")},
                "detail": detail}
     return out, samples
+
+
+def close_world(system) -> list[int]:
+    """Take down the world of ranks that ``system`` made, if it made one:
+    its own ``shutdown`` (every worker runs it and exits), then, whatever
+    came of that, ``Driver``'s stop of any worker still running (a no-op
+    after a clean shutdown).  Returns the process ids of the workers
+    still alive afterwards: none, unless a worker could not be stopped."""
+    d = getattr(system, "_driver", None)
+    if d is None:
+        return []
+    pids = list(d.pids.values())
+    try:
+        if not d.closed:
+            system.shutdown()
+    finally:
+        d._finalizer()
+    return [pid for pid in pids if _alive(pid)]
+
+
+def _alive(pid: int) -> bool:
+    """Whether process ``pid`` runs (a zombie does not)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except (OSError, IndexError):
+        return False
 
 
 def compare_all(capture: Capture, exact, judge, compare, kind: str) -> tuple[dict, dict]:
@@ -687,7 +769,7 @@ def compare_all(capture: Capture, exact, judge, compare, kind: str) -> tuple[dic
     rounding, a gate that admits a point on one side), on one call in
     tens, while a lower precision moves every call."""
     out: dict = {}
-    detail: dict = {}
+    detail: dict = {"world": capture.world}
 
     def worst(name, values, stat=max):
         values = list(values)
@@ -752,13 +834,17 @@ def compare_all(capture: Capture, exact, judge, compare, kind: str) -> tuple[dic
     worst("sft_inliers", (p["inliers"] for p in sfts), statistics.median)
 
     def keyframe(it):
-        r = judge.keyframe_step(it["kfs"], it["points"], it["tmpl"], it["pose"], it["feats"],
-                                it["kp_of_point"], it["inlier"], it["tmpl_ref_kf"],
-                                it["kf_counter"], it["frame_id"])
-        return compare.keyframe_parts(it["out"], r)
+        args = (it["kfs"], it["points"], it["tmpl"], it["pose"], it["feats"], it["kp_of_point"],
+                it["inlier"], it["tmpl_ref_kf"], it["kf_counter"], it["frame_id"])
+        if it.get("legacy"):
+            return compare.legacy_keyframe_parts(it["out"], judge.keyframe_legacy(*args))
+        return compare.keyframe_parts(it["out"], judge.keyframe_step(*args))
     # read, not compared: no gap of the step's outputs separates the
     # control from sound runs, which on some seeds re-embed a quarter of
-    # the points into other facets on most steps (PERF.md, section 2)
+    # the points into other facets on most steps (PERF.md, section 2); a
+    # world of N ranks steps through the host-orchestrated chain, whose
+    # map parts from one card's (it culls with the counter after its
+    # increment), and ``ate`` holds it
     kfs = parts("keyframe", (keyframe(it) for it in capture.keyframes.items if it))
     out["keyframe_n"] = len(kfs)
     return out, detail

@@ -3,11 +3,17 @@ program over many seeds (the lower readings) and runs of the control, the
 program with TF32 allowed (the upper readings), in one process.
 
     python3 portbench/control.py --workload <cell> --seconds <s> \\
-        --seeds <a,b,...> [--control-seeds <c,d,...>] [--out <file.jsonl>]
+        --seeds <a,b,...> [--control-seeds <c,d,...>] [--out <file.jsonl>] \\
+        [--overrides '{"parallel": {"enabled": true, "n_devices": 4}}']
 
 Prints one JSON line per run (the compared numbers, ``attempted`` and
-``failed``), then the largest sound reading and the smallest control
-reading of each number.  The benchmark's own runs never run the control.
+``failed``, the end-to-end metrics, the memory peak, the seconds of
+judging), then the largest sound reading and the smallest control
+reading of each number.  ``--overrides`` merges configuration values into
+the cell's configuration, section by section: the readings of a
+configuration before its cell exists.  The first run's ``setup_s`` counts
+from the process's start, as a run of ``run.py`` does.  The benchmark's
+own runs never run the control.
 """
 
 from __future__ import annotations
@@ -22,20 +28,28 @@ os.environ["TRITON_CACHE_DIR"] = os.path.join(ROOT, "portbench", ".cache", "trit
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
+from portbench.run import START  # noqa: E402  (this process's start)
 
-def readings(cell: str, seeds, seconds: float, control: str | None, out, **kw) -> list[dict]:
+
+def readings(cell: str, seeds, seconds: float, control: str | None, out, start=None,
+             **kw) -> list[dict]:
+    """One run a seed; the first run's set-up counts from ``start``."""
     from portbench import bench
 
     rows = []
     for seed in seeds:
-        r, samples = bench.run_cell(cell, seed, seconds, False, control=control, **kw)
+        r, samples = bench.run_cell(cell, seed, seconds, False, control=control,
+                                    setup_start=start, **kw)
+        start = None
         row = {"cell": cell, "seed": seed, "control": control, "correct": r["correct"],
                "attempted": r["attempted"], "failed": r["failed"],
                "checked": samples["checked"],
                "values": {k: v["value"] for k, v in r["compared"].items()},
                "detail": samples["detail"],
-               "frames_per_s": r["metrics"]["frames_per_s"]["value"],
-               "window_s": samples["window_s"]}
+               **{k: v["value"] for k, v in r["metrics"].items()},
+               "memory_peak_bytes": r["device"]["memory_peak_bytes"],
+               "window_s": samples["window_s"], "judge_s": samples["judge_s"],
+               "workers_left": samples["workers_left"]}
         line = bench.result_line(row)
         print(line, flush=True)
         if out:
@@ -62,12 +76,15 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", default="")
     ap.add_argument("--control-seeds", default="")
     ap.add_argument("--out", default="")
+    ap.add_argument("--overrides", default="{}")
     args = ap.parse_args(argv)
+    kw = {"config_overrides": json.loads(args.overrides)}
     seeds = [int(s) for s in args.seeds.split(",") if s]
     cseeds = [int(s) for s in args.control_seeds.split(",") if s]
     with open(args.out, "a") if args.out else open(os.devnull, "w") as out:
-        sound = readings(args.workload, seeds, args.seconds, None, out)
-        ctrl = readings(args.workload, cseeds, args.seconds, "tf32", out)
+        sound = readings(args.workload, seeds, args.seconds, None, out, START, **kw)
+        ctrl = readings(args.workload, cseeds, args.seconds, "tf32", out,
+                        None if seeds else START, **kw)
     print(json.dumps({"summary": summary(sound, ctrl)}), flush=True)
     return 0
 

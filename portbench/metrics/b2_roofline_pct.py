@@ -7,7 +7,7 @@ from portbench import rooflines
 
 LAYER = "ops/windowed_match"
 UNIT = "%"
-MOVES = "frame_ms_p95"
+MOVES = "frames_per_s"
 KERNEL = "windowed_match_kernel"
 
 

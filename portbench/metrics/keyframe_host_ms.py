@@ -5,7 +5,7 @@ begun in the window's frames after the profiled ones."""
 
 LAYER = "mapping/mapper"
 UNIT = "ms"
-MOVES = "frame_ms_p95"
+MOVES = "frames_per_s"
 
 
 def read(rec):

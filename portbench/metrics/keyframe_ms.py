@@ -6,7 +6,7 @@ import statistics
 
 LAYER = "mapping/mapper"
 UNIT = "ms"
-MOVES = "frame_ms_p95"
+MOVES = "frames_per_s"
 
 
 def read(rec):

@@ -112,7 +112,33 @@ def keyframe_parts(prog, ref) -> dict:
     template nodes, the points, the surfaces and the normals, the pose gap
     and the registration's scale."""
     (kp, pp, tp, Tp, dp), (kr, pr, tr, Tr, dr) = prog, ref
-    out = {
+    out = _table_parts(kp, pp, kr, pr)
+    for name in dp._fields:
+        a, b = getattr(dp, name), getattr(dr, name)
+        if not a.dtype.is_floating_point:
+            out["diag_" + name] = abs(int(a) - int(b)) / max(1, abs(int(b)))
+    out.update(_map_gaps(kp, pp, tp, kr, pr, tr))
+    out["pose"] = pose_gap(Tp, Tr)
+    out["reg_scale"] = (abs(float(dp.reg_scale) - float(dr.reg_scale))
+                        / max(1.0, abs(float(dr.reg_scale))))
+    return out
+
+
+def legacy_keyframe_parts(prog, ref) -> dict:
+    """One step of the multi-device keyframe chain, (kfs, points, template,
+    template source, keyframe counter, swapped) on each side: the table
+    shares and the map's gaps of :func:`keyframe_parts`, and whether the
+    template's source, the counter and the swap differ (1) or not (0)."""
+    (kp, pp, tp, sp, np_, up), (kr, pr, tr, sr, nr, ur) = prog, ref
+    out = _table_parts(kp, pp, kr, pr)
+    out.update(_map_gaps(kp, pp, tp, kr, pr, tr))
+    out.update(tmpl_ref_kf=float(sp != sr), kf_counter=float(np_ != nr),
+               updated=float(bool(up) != bool(ur)))
+    return out
+
+
+def _table_parts(kp, pp, kr, pr) -> dict:
+    return {
         "point_id": share_differ(kp.point_id, kr.point_id, kr.point_id >= 0),
         "kf_valid": share_differ(kp.valid, kr.valid, kr.valid | kp.valid),
         "norm_valid": share_differ(kp.norm_valid, kr.norm_valid, kr.norm_valid | kp.norm_valid),
@@ -120,10 +146,10 @@ def keyframe_parts(prog, ref) -> dict:
         "n_obs": share_differ(pp.n_obs, pr.n_obs, pr.valid),
         "facet": share_differ(pp.facet, pr.facet, pr.valid),
     }
-    for name in dp._fields:
-        a, b = getattr(dp, name), getattr(dr, name)
-        if not a.dtype.is_floating_point:
-            out["diag_" + name] = abs(int(a) - int(b)) / max(1, abs(int(b)))
+
+
+def _map_gaps(kp, pp, tp, kr, pr, tr) -> dict:
+    out = {}
     pts = pr.valid & pp.valid
     sv = kr.surf_valid.cpu()
     nv = kr.norm_valid.cpu() & kp.norm_valid.cpu()
@@ -132,9 +158,6 @@ def keyframe_parts(prog, ref) -> dict:
                           ("norm", kp.norm_k, kr.norm_k, nv)):
         out[name] = rel_gap(a, b, m)
         out[name + "_rms"] = rms_gap(a, b, m)
-    out["pose"] = pose_gap(Tp, Tr)
-    out["reg_scale"] = (abs(float(dp.reg_scale) - float(dr.reg_scale))
-                        / max(1.0, abs(float(dr.reg_scale))))
     return out
 
 

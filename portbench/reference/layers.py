@@ -13,11 +13,14 @@ floating-point tensor in torch's default type, which the reference sets
 around each step; the program's inputs are cast to it.
 
 Besides the frozen modules' entry points this holds plain copies of the
-three steps that live in the program's orchestrators: the plane-at-z=1
+steps that live in the program's orchestrators: the plane-at-z=1
 initialization (``System._initialize``), the rigid pose solve's inputs
 (``RigidSystem._pose_solve``) and the rigid local bundle adjustment
-(``RigidSystem._local_ba``), and the rigid projection search
-(``rigid.system.match_points_rigid``).
+(``RigidSystem._local_ba``), the rigid projection search
+(``rigid.system.match_points_rigid``), and the multi-device System's
+host-orchestrated keyframe chain (``System._insert_keyframe_legacy``),
+unsharded: its warp fits and normal solves are independent per pair and
+per point, so one device solving all of them is the same semantics.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import contextlib
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from portbench.reference.frozen import config as rconfig
@@ -34,7 +38,7 @@ from portbench.reference.frozen.geometry import camera as cam
 from portbench.reference.frozen.geometry import se3
 from portbench.reference.frozen.mapping import mapper
 from portbench.reference.frozen.mapstore import state as store
-from portbench.reference.frozen.ops import matching
+from portbench.reference.frozen.ops import bspline, matching
 from portbench.reference.frozen.rigid import ba
 from portbench.reference.frozen.template import mesh as meshmod
 from portbench.reference.frozen.tracking import pose_opt, sft, tracker
@@ -175,6 +179,105 @@ class Reference:
             self.bend_sfn, tmpl_ref_kf, kf_counter, frame_id, self.cfg)
 
     @in_dtype
+    def keyframe_legacy(self, kfs, points, tmpl, pose, feats, kp_of_point, inlier, tmpl_ref_kf,
+                        kf_counter, frame_id) -> "LegacyState":
+        """The multi-device System's keyframe chain: CreateNewKeyFrame into
+        the first free slot (else the oldest keyframe that is not the
+        template's source), then warps -> densify -> normals -> the
+        template decision -> (maybe) SfN, registration and re-template,
+        new map points and culling with the counter after its increment.
+        Writes ``kfs`` in place."""
+        c = self.cfg
+        kfs, points = self.keyframes(kfs), self.points(points)
+        tmpl, feats = self.template(tmpl), self.features(feats)
+        valid, fid = kfs.valid.cpu().numpy(), kfs.frame_id.cpu().numpy().copy()
+        free = np.nonzero(~valid)[0]
+        if len(free):
+            slot = int(free[0])
+        else:
+            fid[tmpl_ref_kf] = 2**31 - 1
+            slot = int(np.argmin(fid))
+        kf_counter += 1
+        kfs, n_obs = store.insert_keyframe_from_matches(
+            kfs, points.n_obs, slot, pose, feats, kp_of_point, inlier, self.K, frame_id,
+            points.xyz)
+        points = points._replace(n_obs=n_obs)
+
+        def state(updated=False):
+            return LegacyState(kfs, points, tmpl, tmpl_ref_kf, kf_counter, updated)
+
+        # warps over every covisible pair, on the full retina domain
+        cp = mapper.covis_pairs(kfs.point_id, kfs.retina, kfs.valid, points.valid, slot, c)
+        batch = mapper.WarpBatch(uv1=cp.uv1, uv2=cp.uv2, mask=cp.mask, pair_valid=cp.pair_valid)
+        dps, ctrls = mapper.fit_warps(batch, self.dom, self.bend_warp, c)
+        best, _ = mapper.densify_matches(
+            ctrls, kfs.retina[slot], kfs.kp_valid[slot], kfs.desc[slot],
+            kfs.retina[cp.pair_kf], kfs.kp_valid[cp.pair_kf], kfs.desc[cp.pair_kf],
+            self.dom, cp.pair_valid, c)
+        best = torch.where(cp.pair_valid[:, None], best, -1)
+        point_id, n_obs = mapper.apply_densify(kfs.point_id, points.n_obs, slot, cp.pair_kf, best)
+        kfs = kfs._replace(point_id=point_id)
+        points = points._replace(n_obs=n_obs)
+
+        # normals over every point, written into the keyframe and carried to
+        # the covisible keyframes through the warp Jacobians
+        p_cap = c.capacity.max_map_points
+        obs, _ = mapper.accumulate_obs_device(cp.pid_table, dps.mask, cp.uv1, dps.warped,
+                                              dps.J12, dps.Huu, dps.Hvv, p_cap, mapper.OBS_CAP)
+        nres = mapper.solve_normals(obs, points.norm_k0, num_iters=c.mapping.normal_lm_iterations)
+        solved_ok = mapper.normal_reliability_gate(nres, c.regularizer.reliability)
+        points = points._replace(norm_k0=torch.where(solved_ok[:, None], nres.k, points.norm_k0))
+        pid_row = kfs.point_id[slot]
+        norm_k, norm_valid, _ = mapper.write_normals(kfs.norm_k, kfs.norm_valid, slot, pid_row,
+                                                     nres.k, solved_ok)
+        norm_k, norm_valid = mapper.propagate_normals(norm_k, norm_valid, cp, dps, nres.k,
+                                                      solved_ok)
+        kfs = kfs._replace(norm_k=norm_k, norm_valid=norm_valid)
+
+        # the template's source: the new keyframe when exploring, else the
+        # most voted reference keyframe
+        n_new = int(mapper.exploration_count(kfs.xy[slot], kfs.kp_valid[slot], pid_row, c))
+        sel = int(mapper.select_ref_keyframe(pid_row, points.ref_kf, points.valid, kfs.valid,
+                                             slot))
+        if int(cp.n_pairs) == 0:
+            return state()
+        kf_t = slot if n_new > c.mapping.points_to_template else sel
+        if int(kfs.norm_valid[kf_t].sum()) < c.mapping.min_normals:
+            return state()
+
+        # SfN, the Sim(3) registration and the template swap
+        retina = kfs.retina[kf_t]
+        if c.mapping.per_kf_domain:
+            dom_s = mapper.bbox_domain(retina, kfs.kp_valid[kf_t], self.dom,
+                                       margin=c.mapping.kf_domain_margin)
+            bend_s = bspline.bending_matrix_dyn(dom_s, c.mapping.sfn_ctrl_u, c.mapping.sfn_ctrl_v)
+        else:
+            dom_s, bend_s = self.dom, self.bend_sfn
+        res_sfn = mapper.integrate_surface(retina, kfs.norm_k[kf_t], kfs.norm_valid[kf_t], dom_s,
+                                           bend_s, c, ext_dom=self.dom)
+        kf_pose = kfs.pose[kf_t]
+        pid_t = kfs.point_id[kf_t]
+        surf_xyz, map_xyz, mask, embedded = mapper.registration_pairs(
+            res_sfn.xyz, pid_t, kfs.kp_xyz[kf_t], kfs.kp_xyz_valid[kf_t], kfs.norm_valid[kf_t],
+            points.valid, points.facet, kf_pose)
+        reg = mapper.register_surface(surf_xyz, map_xyz, mask, c)
+        if not (bool(res_sfn.ok) and bool(reg.accepted)):
+            return state()
+        ctrl_p = mapper.polish_surface(res_sfn.ctrl, reg, retina, map_xyz, embedded, dom_s,
+                                       bend_s, c, grid_dom=self.dom)
+        regen = mapper.regen_template(ctrl_p, reg, kf_pose, retina, self.dom, c, spline_dom=dom_s)
+        tmpl, tmpl_ref_kf = regen.template, kf_t
+        points, pid_new = mapper.rebuild_points(
+            points, regen, kf_pose, self.K, pid_t, kfs.kp_valid[kf_t], kfs.desc[kf_t],
+            kfs.angle[kf_t], kf_t, self.dom, c, kf_counter)
+        kfs.point_id[kf_t] = pid_new
+        kfs.surf_ctrl[kf_t] = ctrl_p
+        kfs.surf_valid[kf_t] = True
+        kfs.surf_dom[kf_t] = dom_s
+        points, _ = mapper.cull_points(points, kfs.point_id, kfs.valid, kf_counter)
+        return state(True)
+
+    @in_dtype
     def initialize(self, feats) -> "InitState":
         """The plane-at-z=1 initialization of the first frame: every
         keypoint inside the retina domain becomes a map point on z = 1,
@@ -257,6 +360,19 @@ class Reference:
                 return float(ba.ba_objective(survivors, self.K, poses.to(self.dtype),
                                              xyz.to(self.dtype)))
         return res, objective
+
+
+class LegacyState(NamedTuple):
+    """What the multi-device keyframe chain leaves: the stores, the
+    template and its source keyframe, the keyframe counter, and whether
+    the template was swapped."""
+
+    kfs: store.KeyframeStore
+    points: store.PointStore
+    tmpl: meshmod.Template
+    tmpl_ref_kf: int
+    kf_counter: int
+    updated: bool
 
 
 class InitState(NamedTuple):

@@ -106,8 +106,13 @@ def test_cells_configurations_mixes_and_metrics_are_found_by_name():
         assert bench.load_data("limits", w["name"])
         layer = bench.cell_metrics(b, w["name"], True)
         assert layer, w["name"]
-        assert [m["name"] for m in bench.cell_metrics(b, w["name"], False)] == [
-            "frames_per_s", "frame_ms_p95", "setup_s"]
+        e2e = [m["name"] for m in bench.cell_metrics(b, w["name"], False)]
+        # frame_ms_p95 spreads too widely for a bound in stereo0_stream
+        # (PERF.md): read there per layer, as traced_frame_ms_p95
+        assert e2e == (["frames_per_s", "setup_s"] if w["name"] == "stereo0_stream"
+                       else ["frames_per_s", "frame_ms_p95", "setup_s"])
+        # every per-layer metric of a cell moves an end-to-end one the cell reports
+        assert all(m["moves"] in e2e for m in layer), w["name"]
     for m in b["per_layer"]:
         mod = bench.metric_module(m["name"])
         assert (mod.LAYER, mod.UNIT, mod.MOVES) == (m["layer"], m["unit"], m["moves"])

@@ -1,6 +1,7 @@
 """The reduction from a trace and from spans to metrics, on synthetic
 records."""
 
+import numpy as np
 import pytest
 
 from portbench import bench, rooflines
@@ -79,6 +80,14 @@ def test_metric_readers_on_synthetic_records():
     rec.replays = {"extract_ms": 20.0, "sft_ms": 400.0}
     assert bench.metric_module("extract_ms").read(rec) == 20.0
     assert bench.metric_module("sft_ms").read(rec) == 400.0
+
+
+def test_the_traced_frame_tail_is_the_p95_of_the_later_frames():
+    read = bench.metric_module("traced_frame_ms_p95").read
+    assert read(_records()) is None  # no frame after the profiled ones
+    times = [0.4] * 18 + [1.0, 1.2]
+    assert read(_records(frame_s_after=times)) == pytest.approx(
+        float(np.percentile(np.asarray(times) * 1e3, 95)))
 
 
 def test_reservoir_keeps_a_seeded_uniform_sample():
