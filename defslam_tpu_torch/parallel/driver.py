@@ -64,7 +64,7 @@ import weakref
 import torch
 import torch.distributed as dist
 
-from defslam_tpu_torch import parallel
+from defslam_tpu_torch import parallel, profiling
 from defslam_tpu_torch.parallel import launch
 
 # System's public methods by what rank 0 does with them.  Sent to every
@@ -119,7 +119,8 @@ def forwarding(method):
     """``method`` of ``System`` as rank 0 of a driven world runs it: sent
     to every rank first (a :data:`FLUSHED` method sends a ``flush``), and
     a worker's exit raised as ``RuntimeError``.  Calls made inside a call
-    run as they are: the workers make them too."""
+    run as they are: the workers make them too.  The sending is traced as
+    ``parallel.forward``."""
     name = method.__name__
     sent = name if name in FORWARDED else "flush"
 
@@ -128,7 +129,10 @@ def forwarding(method):
         d = system._driver
         if d is None or d.depth:
             return method(system, *args, **kwargs)
-        d.send((sent, args, kwargs) if sent == name else (sent, (), {}))
+        # the span serves the frame the call tracks, else the newest frame
+        frame = system.frame_id + 1 if name.startswith("track_") else system.frame_id
+        with profiling.stage("parallel.forward", frame=frame):
+            d.send((sent, args, kwargs) if sent == name else (sent, (), {}))
         d.depth += 1
         try:
             return method(system, *args, **kwargs)

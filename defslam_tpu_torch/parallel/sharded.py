@@ -33,6 +33,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from defslam_tpu_torch import profiling
 from defslam_tpu_torch.config import Config
 from defslam_tpu_torch.geometry import camera as cam
 from defslam_tpu_torch.geometry import se3
@@ -49,7 +50,8 @@ SFT_OBS_FIELDS = ("obs_uv", "obs_face", "obs_bary", "obs_invsigma2", "obs_mask")
 
 class Group:
     """The ranks that share the sharded work: the default process group.
-    Counts its all-reduce calls and the bytes they carry."""
+    Counts its all-reduce calls and the bytes they carry, and feeds the
+    tracer's counter ``parallel.all_reduce`` with them."""
 
     def __init__(self):
         self.size = dist.get_world_size()
@@ -60,8 +62,10 @@ class Group:
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` over the ranks, in place; returns it."""
         dist.all_reduce(t)
+        nbytes = t.numel() * t.element_size()
         self.n_all_reduce += 1
-        self.all_reduce_bytes += t.numel() * t.element_size()
+        self.all_reduce_bytes += nbytes
+        profiling.count("parallel.all_reduce", nbytes)
         return t
 
     def rows(self, n: int) -> tuple[int, int]:

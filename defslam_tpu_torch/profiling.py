@@ -1,6 +1,7 @@
 """The port's tracer: spans at the program's layer boundaries (the reference
 has none: only ad-hoc ``cv::getTickCount`` prints,
-GroundTruthFrame.cc:196-214), and two counters for the card.
+GroundTruthFrame.cc:196-214), counters of calls and bytes, and two
+counters for the card.
 
 Port of ``defslam_tpu/profiling.py``, grown into spans:
 
@@ -20,6 +21,10 @@ Port of ``defslam_tpu/profiling.py``, grown into spans:
   leaves it), and as a ``record_function`` range of its name, which a
   session with CPU activity shows in its trace.  Off, a span costs one
   branch: no clock read, no allocation, no CUDA event, no sync.
+- ``count(name, nbytes)``: one call of a counter and the bytes it
+  carries, kept while ``enable()`` is on, beside the spans in
+  ``report()`` (``count`` and ``bytes``), and reset with them.  Off, it
+  costs one branch.
 - ``host_waits()``: the operations in a region that make the host wait
   for the card (``torch.cuda.set_sync_debug_mode``), counted by source
   line;
@@ -32,6 +37,19 @@ tracked frame records ``frame.dispatch`` (with ``frontend.extract``,
 and, on a keyframe, ``keyframe.dispatch`` (or ``_a`` and ``_b``) with its
 stages; the rigid mode ``rigid.frame`` with ``rigid.match``,
 ``rigid.pose``, ``rigid.keyframe`` and ``rigid.local_ba``.
+
+A System that spans a world of ranks (``parallel.enabled``) records, on
+each rank that has the tracer on: ``parallel.forward`` (rank 0 of a world
+it made: the pickling and gloo broadcast of each call sent to the
+workers, ``parallel.driver.forwarding``; the frame the call serves);
+``parallel.sft`` around the sharded SfT (``tracker.sft_track_sharded``),
+inside ``tracking.sft`` on a frame and inside ``keyframe.reanchor`` after
+a template swap; ``keyframe.legacy`` around the host-orchestrated keyframe
+chain and its re-anchor (``System._insert_keyframe``), with the fused
+chain's stage names where the stage is the same (``keyframe.insert``,
+``.warps``, ``.densify``, ``.normals``, ``.sfn_registration``,
+``.retemplate``, ``.cull``, ``.reanchor``); and the counter
+``parallel.all_reduce``, fed by ``parallel.sharded.Group.all_reduce``.
 """
 
 from __future__ import annotations
@@ -51,6 +69,8 @@ import torch.autograd.profiler as _torch_profiler
 _ENABLED = os.environ.get("DEFSLAM_PROFILE", "0") not in ("0", "", "false")
 # per name: [count, total ns, max ns, self ns]
 _AGG: dict[str, list[int]] = {}
+# per counter name: [calls, bytes]
+_COUNTS: dict[str, list[int]] = {}
 # the spans recorded under a profiler session, newest last; bounded, so a
 # long session keeps its latest spans
 _TIMELINE: collections.deque = collections.deque(maxlen=200_000)
@@ -168,10 +188,24 @@ def stage(name: str, sync=None, frame: int | None = None):
     return _Open(name, sync, frame)
 
 
+def count(name: str, nbytes: int = 0) -> None:
+    """One call of the counter ``name``, carrying ``nbytes``; kept while
+    ``enable()`` is on."""
+    if not _ENABLED:
+        return
+    agg = _COUNTS.get(name)
+    if agg is None:
+        agg = _COUNTS[name] = [0, 0]
+    agg[0] += 1
+    agg[1] += nbytes
+
+
 def report(reset: bool = False) -> dict[str, dict]:
     """Per span name, over the spans recorded while ``enable()`` was on:
     ``count``, ``total_s``, ``mean_ms``, ``max_ms`` and ``self_ms`` (the
-    mean of each span's time less the time of the spans inside it)."""
+    mean of each span's time less the time of the spans inside it); per
+    counter name, over the same time, ``count`` (its calls) and
+    ``bytes``."""
     out = {}
     for name, (count, total, peak, own) in sorted(_AGG.items()):
         out[name] = dict(
@@ -181,8 +215,11 @@ def report(reset: bool = False) -> dict[str, dict]:
             max_ms=1e-6 * peak,
             self_ms=1e-6 * own / max(count, 1),
         )
+    for name, (calls, nbytes) in sorted(_COUNTS.items()):
+        out[name] = dict(count=calls, bytes=nbytes)
     if reset:
         _AGG.clear()
+        _COUNTS.clear()
     return out
 
 
@@ -202,6 +239,9 @@ def print_report(reset: bool = False):
     width = max(len(n) for n in rows)
     print(f"{'stage':<{width}}  count   mean ms    self ms    max ms   total s")
     for name, r in rows.items():
+        if "bytes" in r:  # a counter
+            print(f"{name:<{width}}  {r['count']:5d}  calls, {r['bytes']} bytes")
+            continue
         print(f"{name:<{width}}  {r['count']:5d}  {r['mean_ms']:8.1f}  {r['self_ms']:9.1f}"
               f"  {r['max_ms']:8.1f}  {r['total_s']:8.2f}")
 

@@ -52,7 +52,7 @@ through the host-orchestrated chain (:meth:`System._insert_keyframe_legacy`:
 pair-sharded warp fits, point-sharded normal solves, three host reads (the
 free slot, the template decision, the registration's verdict), a
 synchronous keyframe frame, the re-anchor after a swap in
-:meth:`System._validate_and_commit`) in place of ``keyframe_step``.
+:meth:`System._reanchor`) in place of ``keyframe_step``.
 
 Everything runs on ``System.device``: CUDA unless the caller passes
 ``device="cpu"``.  Importing this module turns TF32 off for CUDA matmuls
@@ -583,17 +583,6 @@ class System:
         if is_kf:
             template_updated = self._insert_keyframe(feats, matches, res, row)
             self.frames_since_kf = 0
-            if template_updated:
-                # the legacy chain's re-anchor: camera and new mesh against
-                # this frame with the temporal term off (DefTracking.cc:
-                # 115-117, DefPoseOptimization(..., RegTemp=0))
-                matches2 = tracker.match_points_to_frame(self.points, self.pose, self.K, feats, c)
-                res2 = tracker.sft_track_sharded(self.group, self.points, matches2, feats,
-                                                 self.template, self.pose, self.K, c,
-                                                 reg_temp=0.0)
-                self.pose = res2.T
-                self.template = self.template._replace(nodes=res2.nodes)
-                self.points = tracker.reposition_points(self.points, res2.nodes, c)
             # the keyframe step may re-register (Sim(3) rescale) or
             # re-anchor the pose: a velocity spanning that gauge jump would
             # extrapolate garbage, so it is dropped for one frame
@@ -633,14 +622,18 @@ class System:
         Split (``tracking.split_keyframe_dispatch``, off while the GT
         harness evaluates keyframe angles): half A now, half B dispatched
         by the next tracked frame (:meth:`_dispatch_pending_kf_b`).  In
-        parallel mode the legacy chain, which fills the row at once and
-        returns whether it swapped the template (the caller re-anchors);
-        the fused and split paths return False."""
+        parallel mode the legacy chain and, after a template swap, its
+        re-anchor, traced as ``keyframe.legacy``; it fills the row at once
+        and returns whether it swapped the template.  The fused and split
+        paths return False."""
         c = self.cfg
         if self.group is not None:
-            updated = self._insert_keyframe_legacy(feats, matches, res)
-            self._record_template_history()
-            row["template"] = updated
+            with profiling.stage("keyframe.legacy", frame=self.frame_id):
+                updated = self._insert_keyframe_legacy(feats, matches, res)
+                self._record_template_history()
+                row["template"] = updated
+                if updated:
+                    self._reanchor(feats)
             return updated
         self._finalize_pending_map()
         self._dispatch_pending_kf_b()  # a keyframe period of 1
@@ -769,14 +762,28 @@ class System:
         """CreateNewKeyFrame and the host-orchestrated mapping step of the
         JAX package's multi-device path.  Returns whether the template was
         swapped."""
-        slot = self._free_kf_slot()
-        self.kf_counter += 1
-        self.kfs, n_obs = store.insert_keyframe_from_matches(
-            self.kfs, self.points.n_obs, slot, self.pose, feats, matches.kp_of_point,
-            res.inlier, self.K, self.frame_id, self.points.xyz,
-        )
-        self.points = self.points._replace(n_obs=n_obs)
+        with profiling.stage("keyframe.insert"):
+            slot = self._free_kf_slot()
+            self.kf_counter += 1
+            self.kfs, n_obs = store.insert_keyframe_from_matches(
+                self.kfs, self.points.n_obs, slot, self.pose, feats, matches.kp_of_point,
+                res.inlier, self.K, self.frame_id, self.points.xyz,
+            )
+            self.points = self.points._replace(n_obs=n_obs)
         return self._mapping_step(slot)
+
+    def _reanchor(self, feats) -> None:
+        """The legacy chain's re-anchor after a template swap: camera and
+        new mesh against this frame with the temporal term off
+        (DefTracking.cc:115-117, DefPoseOptimization(..., RegTemp=0))."""
+        c = self.cfg
+        with profiling.stage("keyframe.reanchor"):
+            matches2 = tracker.match_points_to_frame(self.points, self.pose, self.K, feats, c)
+            res2 = tracker.sft_track_sharded(self.group, self.points, matches2, feats,
+                                             self.template, self.pose, self.K, c, reg_temp=0.0)
+            self.pose = res2.T
+            self.template = self.template._replace(nodes=res2.nodes)
+            self.points = tracker.reposition_points(self.points, res2.nodes, c)
 
     def _mapping_step(self, slot: int) -> bool:
         """Warps -> densify -> normals -> the template decision -> (maybe)
@@ -785,45 +792,51 @@ class System:
         over it.  One host read of the decision scalars (and one more of
         the registration's verdict in :meth:`_retemplate`)."""
         c = self.cfg
-        cp = mapper.covis_pairs(self.kfs.point_id, self.kfs.retina, self.kfs.valid,
-                                self.points.valid, slot, c)
-        batch = mapper.WarpBatch(uv1=cp.uv1, uv2=cp.uv2, mask=cp.mask, pair_valid=cp.pair_valid)
-        if c.capacity.max_warp_pairs % self.group.size:
-            dps, ctrls = mapper.fit_warps(batch, self.dom, self.bend_warp, c)
-        else:
-            dps, ctrls = sharded.sharded_warp_fits(self.group, batch, self.dom, self.bend_warp, c)
-        self._densify(slot, cp, ctrls)
+        with profiling.stage("keyframe.warps"):
+            cp = mapper.covis_pairs(self.kfs.point_id, self.kfs.retina, self.kfs.valid,
+                                    self.points.valid, slot, c)
+            batch = mapper.WarpBatch(uv1=cp.uv1, uv2=cp.uv2, mask=cp.mask,
+                                     pair_valid=cp.pair_valid)
+            if c.capacity.max_warp_pairs % self.group.size:
+                dps, ctrls = mapper.fit_warps(batch, self.dom, self.bend_warp, c)
+            else:
+                dps, ctrls = sharded.sharded_warp_fits(self.group, batch, self.dom,
+                                                       self.bend_warp, c)
+        with profiling.stage("keyframe.densify"):
+            self._densify(slot, cp, ctrls)
 
-        p_cap = c.capacity.max_map_points
-        obs, _ = mapper.accumulate_obs_device(cp.pid_table, dps.mask, cp.uv1, dps.warped, dps.J12,
-                                              dps.Huu, dps.Hvv, p_cap, mapper.OBS_CAP)
-        iters = c.mapping.normal_lm_iterations
-        if p_cap % self.group.size:
-            nres = mapper.solve_normals(obs, self.points.norm_k0, num_iters=iters)
-        else:
-            nres = sharded.sharded_normal_solves(self.group, obs, self.points.norm_k0,
-                                                 num_iters=iters)
-        # write the normals into the new keyframe and propagate them to the
-        # covisible keyframes through the warp Jacobians
-        # (NormalEstimator.cc:159-224), as the fused step does
-        solved_ok = mapper.normal_reliability_gate(nres, c.regularizer.reliability)
-        self.points = self.points._replace(
-            norm_k0=torch.where(solved_ok[:, None], nres.k, self.points.norm_k0))
-        pid_row = self.kfs.point_id[slot]
-        norm_k, norm_valid, _ = mapper.write_normals(
-            self.kfs.norm_k, self.kfs.norm_valid, slot, pid_row, nres.k, solved_ok)
-        norm_k, norm_valid = mapper.propagate_normals(norm_k, norm_valid, cp, dps, nres.k,
-                                                      solved_ok)
-        self.kfs = self.kfs._replace(norm_k=norm_k, norm_valid=norm_valid)
+        with profiling.stage("keyframe.normals"):
+            p_cap = c.capacity.max_map_points
+            obs, _ = mapper.accumulate_obs_device(cp.pid_table, dps.mask, cp.uv1, dps.warped,
+                                                  dps.J12, dps.Huu, dps.Hvv, p_cap, mapper.OBS_CAP)
+            iters = c.mapping.normal_lm_iterations
+            if p_cap % self.group.size:
+                nres = mapper.solve_normals(obs, self.points.norm_k0, num_iters=iters)
+            else:
+                nres = sharded.sharded_normal_solves(self.group, obs, self.points.norm_k0,
+                                                     num_iters=iters)
+            # write the normals into the new keyframe and propagate them to
+            # the covisible keyframes through the warp Jacobians
+            # (NormalEstimator.cc:159-224), as the fused step does
+            solved_ok = mapper.normal_reliability_gate(nres, c.regularizer.reliability)
+            self.points = self.points._replace(
+                norm_k0=torch.where(solved_ok[:, None], nres.k, self.points.norm_k0))
+            pid_row = self.kfs.point_id[slot]
+            norm_k, norm_valid, _ = mapper.write_normals(
+                self.kfs.norm_k, self.kfs.norm_valid, slot, pid_row, nres.k, solved_ok)
+            norm_k, norm_valid = mapper.propagate_normals(norm_k, norm_valid, cp, dps, nres.k,
+                                                          solved_ok)
+            self.kfs = self.kfs._replace(norm_k=norm_k, norm_valid=norm_valid)
 
-        # template source: the new keyframe when exploring, else the most
-        # voted reference keyframe (needNewTemplate 355-404, selectKeyframe
-        # 411-441); one read brings every keyframe's normal count with it
-        explore = mapper.exploration_count(self.kfs.xy[slot], self.kfs.kp_valid[slot], pid_row, c)
-        sel = mapper.select_ref_keyframe(pid_row, self.points.ref_kf, self.points.valid,
-                                         self.kfs.valid, slot)
-        n_new, sel, n_pairs, n_norm_all = Readback.start(
-            [explore, sel, cp.n_pairs, self.kfs.norm_valid.sum(dim=1)]).get()
+            # template source: the new keyframe when exploring, else the most
+            # voted reference keyframe (needNewTemplate 355-404, selectKeyframe
+            # 411-441); one read brings every keyframe's normal count with it
+            explore = mapper.exploration_count(self.kfs.xy[slot], self.kfs.kp_valid[slot],
+                                               pid_row, c)
+            sel = mapper.select_ref_keyframe(pid_row, self.points.ref_kf, self.points.valid,
+                                             self.kfs.valid, slot)
+            n_new, sel, n_pairs, n_norm_all = Readback.start(
+                [explore, sel, cp.n_pairs, self.kfs.norm_valid.sum(dim=1)]).get()
         if int(n_pairs) == 0:
             return False
         kf_t = slot if int(n_new) > c.mapping.points_to_template else int(sel)
@@ -858,39 +871,45 @@ class System:
         verdicts); returns whether the template was swapped."""
         c = self.cfg
         kfs = self.kfs
-        retina = kfs.retina[slot]
-        if c.mapping.per_kf_domain:
-            dom_s = mapper.bbox_domain(retina, kfs.kp_valid[slot], self.dom,
-                                       margin=c.mapping.kf_domain_margin)
-            bend_s = bspline.bending_matrix_dyn(dom_s, c.mapping.sfn_ctrl_u, c.mapping.sfn_ctrl_v)
-        else:
-            dom_s, bend_s = self.dom, self.bend_sfn
-        res_sfn = mapper.integrate_surface(retina, kfs.norm_k[slot], kfs.norm_valid[slot], dom_s,
-                                           bend_s, c, ext_dom=self.dom)
-        pose = kfs.pose[slot]
-        pid_row = kfs.point_id[slot]
-        surf_xyz, map_xyz, mask, embedded = mapper.registration_pairs(
-            res_sfn.xyz, pid_row, kfs.kp_xyz[slot], kfs.kp_xyz_valid[slot], kfs.norm_valid[slot],
-            self.points.valid, self.points.facet, pose,
-        )
-        reg = mapper.register_surface(surf_xyz, map_xyz, mask, c)
-        sfn_ok, accepted = Readback.start([res_sfn.ok, reg.accepted]).get()
+        with profiling.stage("keyframe.sfn_registration"):
+            retina = kfs.retina[slot]
+            if c.mapping.per_kf_domain:
+                dom_s = mapper.bbox_domain(retina, kfs.kp_valid[slot], self.dom,
+                                           margin=c.mapping.kf_domain_margin)
+                bend_s = bspline.bending_matrix_dyn(dom_s, c.mapping.sfn_ctrl_u,
+                                                    c.mapping.sfn_ctrl_v)
+            else:
+                dom_s, bend_s = self.dom, self.bend_sfn
+            res_sfn = mapper.integrate_surface(retina, kfs.norm_k[slot], kfs.norm_valid[slot],
+                                               dom_s, bend_s, c, ext_dom=self.dom)
+            pose = kfs.pose[slot]
+            pid_row = kfs.point_id[slot]
+            surf_xyz, map_xyz, mask, embedded = mapper.registration_pairs(
+                res_sfn.xyz, pid_row, kfs.kp_xyz[slot], kfs.kp_xyz_valid[slot],
+                kfs.norm_valid[slot], self.points.valid, self.points.facet, pose,
+            )
+            reg = mapper.register_surface(surf_xyz, map_xyz, mask, c)
+            sfn_ok, accepted = Readback.start([res_sfn.ok, reg.accepted]).get()
         if not (bool(sfn_ok) and bool(accepted)):
             return False
-        ctrl_p = mapper.polish_surface(res_sfn.ctrl, reg, retina, map_xyz, embedded, dom_s,
-                                       bend_s, c, grid_dom=self.dom)
-        regen = mapper.regen_template(ctrl_p, reg, pose, retina, self.dom, c, spline_dom=dom_s)
-        self.template = regen.template
-        self.template_ref_kf = slot
-        self.points, pid_row_new = mapper.rebuild_points(
-            self.points, regen, pose, self.K, pid_row, kfs.kp_valid[slot], kfs.desc[slot],
-            kfs.angle[slot], slot, self.dom, c, self.kf_counter,
-        )
-        put_(kfs.point_id, slot, pid_row_new)
-        put_(kfs.surf_ctrl, slot, ctrl_p)
-        put_(kfs.surf_valid, slot, True)  # not `x[slot] = True`: that waits for the stream
-        put_(kfs.surf_dom, slot, dom_s)
-        self.points, _ = mapper.cull_points(self.points, kfs.point_id, kfs.valid, self.kf_counter)
+        with profiling.stage("keyframe.retemplate"):
+            ctrl_p = mapper.polish_surface(res_sfn.ctrl, reg, retina, map_xyz, embedded, dom_s,
+                                           bend_s, c, grid_dom=self.dom)
+            regen = mapper.regen_template(ctrl_p, reg, pose, retina, self.dom, c,
+                                          spline_dom=dom_s)
+            self.template = regen.template
+            self.template_ref_kf = slot
+            self.points, pid_row_new = mapper.rebuild_points(
+                self.points, regen, pose, self.K, pid_row, kfs.kp_valid[slot], kfs.desc[slot],
+                kfs.angle[slot], slot, self.dom, c, self.kf_counter,
+            )
+            put_(kfs.point_id, slot, pid_row_new)
+            put_(kfs.surf_ctrl, slot, ctrl_p)
+            put_(kfs.surf_valid, slot, True)  # not `x[slot] = True`: that waits for the stream
+            put_(kfs.surf_dom, slot, dom_s)
+        with profiling.stage("keyframe.cull"):
+            self.points, _ = mapper.cull_points(self.points, kfs.point_id, kfs.valid,
+                                                self.kf_counter)
         return True
 
     # -------------------------------------------------------- persistence

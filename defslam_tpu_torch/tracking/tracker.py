@@ -134,16 +134,18 @@ def sft_track_sharded(group, points: PointStore, matches: FrameMatches, feats: F
     """:func:`sft_track` with the solve's observation rows sharded over
     ``group`` (``parallel.sharded.sft_solve_sharded``): the frame solve of
     ``Config.parallel``.  The observation axis, min(max_keypoints,
-    max_map_points), must divide over the group."""
+    max_map_points), must divide over the group.  Traced as
+    ``parallel.sft``."""
     from defslam_tpu_torch.parallel import sharded
 
     n_obs = min(cfg.orb.max_keypoints, points.capacity)
     if n_obs % group.size:
         raise ValueError(f"the sharded observation axis min(max_keypoints, max_map_points) = "
                          f"{n_obs} must divide over {group.size} ranks")
-    data, sel, sel_mask = _sft_data_from_matches(points, matches, feats, tmpl, pose0, K, cfg)
-    res = sharded.sft_solve_sharded(group, data, cfg, reg_temp=reg_temp)
-    return _scatter_sft_result(res, sel, sel_mask, points.capacity, cfg)
+    with profiling.stage("parallel.sft"):
+        data, sel, sel_mask = _sft_data_from_matches(points, matches, feats, tmpl, pose0, K, cfg)
+        res = sharded.sft_solve_sharded(group, data, cfg, reg_temp=reg_temp)
+        return _scatter_sft_result(res, sel, sel_mask, points.capacity, cfg)
 
 
 def _scatter_sft_result(res: sft.SfTResult, sel, sel_mask, p_cap: int,
